@@ -1,0 +1,107 @@
+"""Build the port's CUDA kernels with nvcc and load them with ctypes.
+
+Each source in ``ops/csrc/*.cu`` becomes one shared library with a plain C
+interface (no PyTorch headers, so a build takes seconds). Libraries land in
+``lighthouse_tpu_torch/_build/``, named by a hash of the sources and flags, so
+a changed source rebuilds and an unchanged one is reused. The first call to
+``library`` builds every source at once, one nvcc process each, all started
+together. Nothing is built or imported at module import.
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
+SOURCES = ("fp_mul", "fp2_mul", "fp12_op")
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+FLAGS = ["-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+# C entry points per library: name -> number of tensor pointers (output first).
+ENTRY_POINTS = {
+    "fp_mul": {"lh_fp_mul": 3, "lh_fp_sqr": 2},
+    "fp2_mul": {"lh_fp2_mul": 3, "lh_fp2_sqr": 2},
+    "fp12_op": {"lh_fp12_sqr": 2, "lh_fp12_mul": 3, "lh_fp12_line": 3},
+}
+
+_LIBS: dict = {}
+BUILD_SECONDS: dict = {}
+
+
+def nvcc() -> str:
+    found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(found):
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return found
+
+
+def _digest(name: str) -> str:
+    h = hashlib.sha256()
+    for path in (CSRC / "fp.cuh", CSRC / f"{name}.cu"):
+        h.update(path.read_bytes())
+    h.update(" ".join(ARCH_FLAGS + FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def _target(name: str) -> Path:
+    return BUILD_DIR / f"{name}-{_digest(name)}.so"
+
+
+def build_all() -> dict:
+    """Compile every source that has no up-to-date library, in parallel.
+    Returns {name: seconds} for the sources built now; the ptxas report of
+    each build (registers, spills) is kept beside it as ``<lib>.log``."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    t0 = time.perf_counter()
+    for name in SOURCES:
+        target = _target(name)
+        if target.exists():
+            continue
+        tmp = target.with_suffix(f".{os.getpid()}.tmp")
+        log = open(target.with_suffix(".log"), "w")
+        cmd = [nvcc()] + ARCH_FLAGS + FLAGS + ["-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT), tmp, target, log)
+    failed = []
+    for name, (proc, tmp, target, log) in procs.items():
+        rc = proc.wait()
+        log.close()
+        BUILD_SECONDS[name] = time.perf_counter() - t0
+        if rc != 0:
+            failed.append(f"{name} (see {target.with_suffix('.log')})")
+        else:
+            os.replace(tmp, target)
+    if failed:
+        raise RuntimeError("nvcc failed: " + ", ".join(failed))
+    return {name: BUILD_SECONDS[name] for name in procs}
+
+
+def ptxas_report(name: str) -> str:
+    """The ptxas lines (registers, spill stores/loads) of a built library."""
+    log = _target(name).with_suffix(".log")
+    if not log.exists():
+        return ""
+    keep = ("Compiling entry", "registers", "spill")
+    return "\n".join(line.strip() for line in log.read_text().splitlines()
+                     if any(k in line for k in keep))
+
+
+def library(name: str) -> ctypes.CDLL:
+    lib = _LIBS.get(name)
+    if lib is None:
+        target = _target(name)
+        if not target.exists():
+            build_all()
+        lib = ctypes.CDLL(str(target))
+        for fn_name, n_ptr in ENTRY_POINTS[name].items():
+            fn = getattr(lib, fn_name)
+            fn.argtypes = ([ctypes.c_void_p] * n_ptr
+                           + [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p])
+            fn.restype = ctypes.c_int
+        _LIBS[name] = lib
+    return lib

@@ -1,0 +1,168 @@
+// BLS12-381 base-field arithmetic for one element per thread (sm_90a).
+//
+// An Fp value is 12 little-endian 32-bit limbs in Montgomery form
+// (x * 2^384 mod p), canonical in [0, p). Tensors are batch-minor: limb l
+// of element (row r, lane i) lives at r * stride + l * n + i, so a warp's
+// 32 threads read 32 neighbouring words for every limb.
+//
+// Products are double-width (24 limbs) and accumulate lazily: a signed sum
+// of products plus a non-negativity offset (a multiple of p) is reduced
+// ONCE by Montgomery REDC. redc<NSUB>(T) returns T * 2^-384 mod p for any
+// 0 <= T < 2^768 with T / 2^384 + p < (NSUB + 1) p, i.e. T < NSUB * p * 2^384;
+// each caller states its bound.
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace lh {
+
+constexpr int NL = 12;   // limbs per Fp
+constexpr int NW = 24;   // limbs per double-width product
+
+__constant__ uint32_t kP[NL] = {
+    0xffffaaabu, 0xb9feffffu, 0xb153ffffu, 0x1eabfffeu, 0xf6b0f624u, 0x6730d2a0u,
+    0xf38512bfu, 0x64774b84u, 0x434bacd7u, 0x4b1ba7b6u, 0x397fe69au, 0x1a0111eau};
+
+// p^2 and 16 p^2: the offsets of the Fp2 (K2) and Fp12 (K3) accumulators.
+__constant__ uint32_t kP2[NW] = {
+    0x1c718e39u, 0x26aa0000u, 0x76382eabu, 0x7ced6b1du, 0x62113cfdu, 0x162c3383u,
+    0x3e71b743u, 0x66bf91edu, 0x7091a049u, 0x292e85a8u, 0x86185c7bu, 0x1d68619cu,
+    0x0978ef01u, 0xf5314933u, 0x16ddca6eu, 0x50a62cfdu, 0x349e8bd0u, 0x66e59e49u,
+    0x0e7046b4u, 0xe2dc90e5u, 0xa22f25e9u, 0x4bd278eau, 0xb8c35fc7u, 0x02a437a4u};
+__constant__ uint32_t kP2x16[NW] = {
+    0xc718e390u, 0x6aa00001u, 0x6382eab2u, 0xced6b1d7u, 0x2113cfd7u, 0x62c33836u,
+    0xe71b7431u, 0x6bf91ed3u, 0x091a0496u, 0x92e85a87u, 0x6185c7b2u, 0xd68619c8u,
+    0x978ef011u, 0x53149330u, 0x6ddca6efu, 0x0a62cfd1u, 0x49e8bd05u, 0x6e59e493u,
+    0xe7046b46u, 0x2dc90e50u, 0x22f25e9eu, 0xbd278eaau, 0x8c35fc74u, 0x2a437a4bu};
+
+constexpr uint32_t kN0 = 0xfffcfffdu;   // -p^-1 mod 2^32
+
+__device__ __forceinline__ void load(uint32_t* x, const uint32_t* src, long long n) {
+#pragma unroll
+  for (int l = 0; l < NL; ++l) x[l] = src[l * n];
+}
+
+__device__ __forceinline__ void store(uint32_t* dst, const uint32_t* x, long long n) {
+#pragma unroll
+  for (int l = 0; l < NL; ++l) dst[l * n] = x[l];
+}
+
+// t = a * b (24 limbs), product scanning with a 96-bit column accumulator.
+__device__ __forceinline__ void mul_wide(const uint32_t* a, const uint32_t* b, uint32_t* t) {
+  uint64_t lo = 0;
+  uint32_t hi = 0;
+#pragma unroll
+  for (int k = 0; k < NW - 1; ++k) {
+#pragma unroll
+    for (int i = 0; i < NL; ++i) {
+      const int j = k - i;
+      if (j >= 0 && j < NL) {
+        const uint64_t p = (uint64_t)a[i] * b[j];
+        lo += p;
+        hi += (lo < p);
+      }
+    }
+    t[k] = (uint32_t)lo;
+    lo = (lo >> 32) | ((uint64_t)hi << 32);
+    hi = 0;
+  }
+  t[NW - 1] = (uint32_t)lo;
+}
+
+// t += x (mod 2^768; callers keep the sum below 2^768).
+__device__ __forceinline__ void add_wide(uint32_t* t, const uint32_t* x) {
+  uint64_t c = 0;
+#pragma unroll
+  for (int k = 0; k < NW; ++k) {
+    c += (uint64_t)t[k] + x[k];
+    t[k] = (uint32_t)c;
+    c >>= 32;
+  }
+}
+
+// t -= x (callers keep the difference non-negative).
+__device__ __forceinline__ void sub_wide(uint32_t* t, const uint32_t* x) {
+  uint64_t br = 0;
+#pragma unroll
+  for (int k = 0; k < NW; ++k) {
+    const uint64_t d = (uint64_t)t[k] - x[k] - br;
+    t[k] = (uint32_t)d;
+    br = d >> 63;
+  }
+}
+
+__device__ __forceinline__ void set_wide(uint32_t* t, const uint32_t* c) {
+#pragma unroll
+  for (int k = 0; k < NW; ++k) t[k] = c[k];
+}
+
+// x -= p when x >= p.
+__device__ __forceinline__ void cond_sub_p(uint32_t* x) {
+  uint32_t d[NL];
+  uint64_t br = 0;
+#pragma unroll
+  for (int j = 0; j < NL; ++j) {
+    const uint64_t v = (uint64_t)x[j] - kP[j] - br;
+    d[j] = (uint32_t)v;
+    br = v >> 63;
+  }
+#pragma unroll
+  for (int j = 0; j < NL; ++j) x[j] = br ? x[j] : d[j];
+}
+
+// out = t * 2^-384 mod p (t is clobbered). Separated operand scanning: row i
+// adds m_i * p * 2^(32 i), which clears limb i; the row's carry lands on limb
+// i + 12 and that limb's own overflow (0 or 1) rides `ec` into the next row.
+template <int NSUB>
+__device__ __forceinline__ void redc(uint32_t* t, uint32_t* out) {
+  uint32_t ec = 0;
+#pragma unroll
+  for (int i = 0; i < NL; ++i) {
+    const uint32_t m = t[i] * kN0;
+    uint64_t c = 0;
+#pragma unroll
+    for (int j = 0; j < NL; ++j) {
+      c += (uint64_t)m * kP[j] + t[i + j];
+      t[i + j] = (uint32_t)c;
+      c >>= 32;
+    }
+    const uint64_t s = (uint64_t)t[i + NL] + c + ec;
+    t[i + NL] = (uint32_t)s;
+    ec = (uint32_t)(s >> 32);
+  }
+  // Under every caller's bound the quotient is below 2^384, so ec == 0.
+#pragma unroll
+  for (int j = 0; j < NL; ++j) out[j] = t[NL + j];
+#pragma unroll
+  for (int s = 0; s < NSUB; ++s) cond_sub_p(out);
+}
+
+// Accumulate one Fp2 product x * y, or xi * x * y with xi = 1 + u, into the
+// double-width accumulators (t0, t1) of an Fp2 output:
+//   x * y       = (x0 y0 - x1 y1) + (x0 y1 + x1 y0) u
+//   xi * x * y  = (x0 y0 - x1 y1 - x0 y1 - x1 y0) + (x0 y0 - x1 y1 + x0 y1 + x1 y0) u
+// Four Fp products either way; each is added to or subtracted from t0 and t1.
+__device__ __forceinline__ void fp2_acc(uint32_t* t0, uint32_t* t1, const uint32_t* x0,
+                                        const uint32_t* x1, const uint32_t* y0,
+                                        const uint32_t* y1, bool xi) {
+  uint32_t pr[NW];
+  mul_wide(x0, y0, pr);
+  add_wide(t0, pr);
+  if (xi) add_wide(t1, pr);
+  mul_wide(x1, y1, pr);
+  sub_wide(t0, pr);
+  if (xi) sub_wide(t1, pr);
+  mul_wide(x0, y1, pr);
+  if (xi) sub_wide(t0, pr);
+  add_wide(t1, pr);
+  mul_wide(x1, y0, pr);
+  if (xi) sub_wide(t0, pr);
+  add_wide(t1, pr);
+}
+
+__device__ __forceinline__ long long thread_index() {
+  return (long long)blockIdx.x * blockDim.x + threadIdx.x;
+}
+
+}  // namespace lh

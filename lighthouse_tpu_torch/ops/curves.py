@@ -1,0 +1,270 @@
+"""G1/G2 group operations in the batch-minor layout.
+
+Counterparts: ``lighthouse_tpu/ops/bm/curves.py`` (followed function for
+function) and ``lighthouse_tpu/ops/curves.py`` (batch-major; its formula
+comments are authoritative): the complete Renes-Costello-Batina projective
+formulas for a = 0, fixed- and variable-scalar ladders, the psi
+endomorphism, Bowe's subgroup check and Budroni-Pintore cofactor clearing.
+
+    G1 point: (..., 3, 12, n)       projective (X, Y, Z), coords on axis -3
+    G2 point: (..., 3, 2, 12, n)    coords on axis -4
+
+Each formula batches its independent products into one kernel call
+(``mul_many``). Masks and scalars are (..., n); scalars are int64 tensors
+holding the bit patterns of unsigned 64-bit values.
+"""
+
+from functools import lru_cache
+
+import torch
+
+from ..crypto.bls import curves as _oc
+from ..crypto.bls.constants import BLS_X_ABS
+from . import limbs as lb
+from . import tower as tw
+
+
+class _FieldAdapter:
+    def __init__(self, tail_ndim, mul, is_zero, zero, one):
+        self.tail_ndim = tail_ndim          # dims of one element incl. batch
+        self.mul = mul
+        self.is_zero = is_zero
+        self.zero = zero                    # device -> constant
+        self.one = one
+
+    add = staticmethod(lb.add)
+    sub = staticmethod(lb.sub)
+    neg = staticmethod(lb.neg)
+    mul_small = staticmethod(lb.mul_small)
+
+    def _many(self, op, xs, ys):
+        """One call of `op` on the stacked operands (one kernel launch, or
+        one set of torch ops, for a whole formula step)."""
+        axis = -(self.tail_ndim + 1)
+        out = op(torch.stack(torch.broadcast_tensors(*xs), dim=axis),
+                 torch.stack(torch.broadcast_tensors(*ys), dim=axis))
+        return [out.select(axis, i) for i in range(len(xs))]
+
+    def mul_many(self, xs, ys):
+        return self._many(self.mul, xs, ys)
+
+    def add_many(self, xs, ys):
+        return self._many(lb.add, xs, ys)
+
+    def sub_many(self, xs, ys):
+        return self._many(lb.sub, xs, ys)
+
+
+FP = _FieldAdapter(2, lb.mul, lb.is_zero, lb.zero, lb.one)
+FP2 = _FieldAdapter(3, tw.fp2_mul, tw.fp2_is_zero,
+                    lambda d: tw.consts(d).fp2_zero, lambda d: tw.consts(d).fp2_one)
+
+
+class _Group:
+    def __init__(self, field: _FieldAdapter, b3_mul, name: str):
+        self.f = field
+        self.b3_mul = b3_mul
+        self.name = name
+
+    def infinity(self, device):
+        return _infinity(self.name, torch.device(device))
+
+    def coords(self, p):
+        ax = -(self.f.tail_ndim + 1)
+        return p.select(ax, 0), p.select(ax, 1), p.select(ax, 2)
+
+    def pack(self, X, Y, Z):
+        return torch.stack([X, Y, Z], dim=-(self.f.tail_ndim + 1))
+
+    def is_infinity(self, p):
+        return self.f.is_zero(self.coords(p)[2])
+
+    def on_curve(self, p):
+        f = self.f
+        X, Y, Z = self.coords(p)
+        y2, x2, z2 = f.mul_many([Y, X, Z], [Y, X, Z])
+        y2z, x3, z3 = f.mul_many([y2, x2, z2], [Z, X, Z])
+        return f.is_zero(f.sub(y2z, f.add(x3, self.b3_mul(z3, 1))))
+
+    def select(self, mask, a, b):
+        idx = (Ellipsis,) + (None,) * self.f.tail_ndim + (slice(None),)
+        return torch.where(mask[idx], a, b)
+
+    def add(self, p, q):
+        f = self.f
+        X1, Y1, Z1 = self.coords(p)
+        X2, Y2, Z2 = self.coords(q)
+        s = f.add_many([X1, Y1, X1, X2, Y2, X2], [Y1, Z1, Z1, Y2, Z2, Z2])
+        t0, t1, t2, m3, m4, m5 = f.mul_many([X1, Y1, Z1, s[0], s[1], s[2]],
+                                            [X2, Y2, Z2, s[3], s[4], s[5]])
+        u = f.add_many([t0, t1, t0], [t1, t2, t2])
+        t3, t4, ty = f.sub_many([m3, m4, m5], u)
+        t03 = f.mul_small(t0, 3)
+        t2b, yb = self.b3_many([t2, ty])
+        z3s, t1b = f.add(t1, t2b), f.sub(t1, t2b)
+        p0, p1, p2, p3, p4, p5 = f.mul_many(
+            [t4, t3, yb, t1b, t03, z3s],
+            [yb, t1b, t03, z3s, t3, t4],
+        )
+        y3, z3 = f.add_many([p2, p5], [p3, p4])
+        return self.pack(f.sub(p1, p0), y3, z3)
+
+    def double(self, p):
+        f = self.f
+        X, Y, Z = self.coords(p)
+        t0, t1, t2, txy = f.mul_many([Y, Y, Z, X], [Y, Z, Z, Y])
+        t2b = self.b3_mul(t2)
+        z8 = f.mul_small(t0, 8)
+        y3s = f.add(t0, t2b)
+        t0p = f.sub(t0, f.mul_small(t2b, 3))
+        q0, q1, q2, q3 = f.mul_many([t2b, t1, t0p, t0p], [z8, z8, y3s, txy])
+        return self.pack(f.add(q3, q3), f.add(q0, q2), q1)
+
+    def b3_many(self, xs):
+        axis = -(self.f.tail_ndim + 1)
+        out = self.b3_mul(torch.stack(torch.broadcast_tensors(*xs), dim=axis))
+        return [out.select(axis, i) for i in range(len(xs))]
+
+    def neg(self, p):
+        X, Y, Z = self.coords(p)
+        return self.pack(X, self.f.neg(Y), Z)
+
+    def mul_fixed_scalar(self, p, k: int):
+        """[k]P for a public scalar: double-and-add over k's bits."""
+        if k < 0:
+            return self.mul_fixed_scalar(self.neg(p), -k)
+        if k == 0:
+            return self.infinity(p.device).expand_as(p)
+        acc = p
+        for c in bin(k)[3:]:
+            acc = self.double(acc)
+            if c == "1":
+                acc = self.add(acc, p)
+        return acc
+
+    def mul_var_scalar(self, p, k, nbits: int = 64):
+        """[k_i]P_i with per-element 64-bit scalars k (int64 bit patterns,
+        (..., n)): a 2-bit fixed window, as curves._Group.mul_var_scalar."""
+        if nbits % 2:
+            raise ValueError("nbits must be even")
+        p2 = self.double(p)
+        p3 = self.add(p2, p)
+        inf = self.infinity(p.device).expand_as(p)
+        acc = inf
+        for pos in range(nbits - 2, -1, -2):
+            acc = self.double(self.double(acc))
+            digit = (k >> pos) & 3
+            entry = self.select(digit == 1, p, self.select(
+                digit == 2, p2, self.select(digit == 3, p3, inf)))
+            acc = self.add(acc, entry)
+        return acc
+
+    def msm_reduce_minor(self, pts, axis_size: int):
+        """Sum points along the minor batch axis (log2 complete adds); the
+        result keeps a trailing batch axis of 1."""
+        return lb.tree_reduce_minor(pts, self.add, self.infinity(pts.device), axis_size)
+
+
+def _b3_g1(a, k: int = 3):
+    """[3b] a for G1 (b = 4); k = 1 gives [b] a."""
+    return lb.mul_small(a, 4 * k)
+
+
+def _b3_g2(a, k: int = 3):
+    """[3b] a for G2 (b = 4 xi); k = 1 gives [b] a."""
+    return lb.mul_small(tw.fp2_mul_by_xi(a), 4 * k)
+
+
+G1 = _Group(FP, _b3_g1, "G1")
+G2 = _Group(FP2, _b3_g2, "G2")
+
+
+@lru_cache(maxsize=None)
+def _infinity(name: str, device):
+    f = G1.f if name == "G1" else G2.f
+    return torch.stack([f.zero(device), f.one(device), f.zero(device)])
+
+
+# --- Host staging (oracle affine <-> batch-minor projective) ---------------
+
+
+def g1_from_affine(pts, device) -> torch.Tensor:
+    """[(x, y) | None, ...] -> (3, 12, n); None is infinity (0 : 1 : 0)."""
+    xs, ys, zs = [], [], []
+    for pt in pts:
+        if pt is None:
+            xs.append(0), ys.append(1), zs.append(0)
+        else:
+            xs.append(pt[0]), ys.append(pt[1]), zs.append(1)
+    return torch.stack([lb.ints_to_limbs(v, device) for v in (xs, ys, zs)])
+
+
+def g2_from_affine(pts, device) -> torch.Tensor:
+    """[((x0, x1), (y0, y1)) | None, ...] -> (3, 2, 12, n)."""
+    X, Y, Z = [], [], []
+    for pt in pts:
+        if pt is None:
+            X.append((0, 0)), Y.append((1, 0)), Z.append((0, 0))
+        else:
+            X.append(pt[0]), Y.append(pt[1]), Z.append((1, 0))
+    return torch.stack([tw.fp2_from_int_pairs(v, device) for v in (X, Y, Z)])
+
+
+def to_affine_ints(pts, group: str) -> list:
+    """Projective device points -> oracle affine points (host inversion),
+    for tests and checks."""
+    if group == "G1":
+        X, Y, Z = (lb.limbs_to_ints(pts.select(-3, i)) for i in range(3))
+        out = []
+        for x, y, z in zip(X, Y, Z):
+            if z == 0:
+                out.append(None)
+            else:
+                zi = pow(z, -1, _oc.P)
+                out.append((x * zi % _oc.P, y * zi % _oc.P))
+        return out
+    from ..crypto.bls import fields as f
+    co = [[lb.limbs_to_ints(pts.select(-4, i).select(-3, c)) for c in range(2)]
+          for i in range(3)]
+    out = []
+    for j in range(len(co[0][0])):
+        x, y, z = ((co[i][0][j], co[i][1][j]) for i in range(3))
+        if f.fp2_is_zero(z):
+            out.append(None)
+        else:
+            zi = f.fp2_inv(z)
+            out.append((f.fp2_mul(x, zi), f.fp2_mul(y, zi)))
+    return out
+
+
+# --- psi endomorphism, subgroup checks, cofactor clearing -------------------
+
+
+@lru_cache(maxsize=None)
+def _psi_consts(device):
+    return (tw.fp2_from_int_pairs([_oc.PSI_CX], torch.device(device)),
+            tw.fp2_from_int_pairs([_oc.PSI_CY], torch.device(device)))
+
+
+def g2_psi(p):
+    X, Y, Z = G2.coords(p)
+    cx, cy = _psi_consts(p.device)
+    prod = tw.fp2_mul(torch.stack([tw.fp2_conj(X), tw.fp2_conj(Y)], dim=-4),
+                      torch.stack(torch.broadcast_tensors(cx, cy), dim=-4))
+    return G2.pack(prod.select(-4, 0), prod.select(-4, 1), tw.fp2_conj(Z))
+
+
+def g2_in_subgroup(p):
+    """psi(P) == [x]P (Bowe), as psi(P) + [|x|]P == O with x < 0."""
+    s = G2.add(g2_psi(p), G2.mul_fixed_scalar(p, BLS_X_ABS))
+    return torch.logical_and(G2.on_curve(p), G2.is_infinity(s))
+
+
+def g2_clear_cofactor(p):
+    """Budroni-Pintore psi decomposition (curves.g2_clear_cofactor)."""
+    xp = G2.neg(G2.mul_fixed_scalar(p, BLS_X_ABS))
+    xxp = G2.neg(G2.mul_fixed_scalar(xp, BLS_X_ABS))
+    term1 = G2.add(G2.add(xxp, G2.neg(xp)), G2.neg(p))
+    term2 = g2_psi(G2.add(xp, G2.neg(p)))
+    term3 = g2_psi(g2_psi(G2.double(p)))
+    return G2.add(G2.add(term1, term2), term3)

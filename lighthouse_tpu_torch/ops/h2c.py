@@ -1,0 +1,145 @@
+"""Hash to G2 in the batch-minor layout.
+
+Counterparts: ``lighthouse_tpu/ops/bm/h2c.py`` (followed step for step) and
+``lighthouse_tpu/ops/h2c.py`` (batch-major; its RFC 9380 derivation comments
+are authoritative). The host part, expand_message_xmd and hash_to_field,
+comes from the port's copy of ``crypto/bls/hash_to_curve.py``
+(``ops/bm/h2c.hash_to_field_bm_np`` imports JAX). The device part is the
+projective simplified SWU map, the homogeneous 3-isogeny and cofactor
+clearing, on (2, 2, 12, m) field elements: two Fp2 per message, messages
+minor.
+"""
+
+from functools import lru_cache
+
+import torch
+
+from ..crypto.bls import hash_to_curve as oh2c
+from ..crypto.bls.constants import (
+    DST_G2,
+    ISO3_X_DEN,
+    ISO3_X_NUM,
+    ISO3_Y_DEN,
+    ISO3_Y_NUM,
+    SSWU_A2,
+    SSWU_B2,
+    SSWU_Z2,
+)
+from . import curves as cv
+from . import limbs as lb
+from . import tower as tw
+
+
+class _Consts:
+    def __init__(self, device):
+        def fp2(c):
+            return tw.fp2_from_int_pairs([c], device)
+
+        def stack(coeffs):
+            return torch.stack([fp2(c) for c in coeffs])
+
+        self.a, self.b, self.z = fp2(SSWU_A2), fp2(SSWU_B2), fp2(SSWU_Z2)
+        self.xn = stack(ISO3_X_NUM)
+        self.xd = stack(list(ISO3_X_DEN) + [(0, 0)])
+        self.yn = stack(ISO3_Y_NUM)
+        self.yd = stack(ISO3_Y_DEN)
+
+
+@lru_cache(maxsize=None)
+def consts(device) -> _Consts:
+    return _Consts(torch.device(device))
+
+
+# --- Host staging -----------------------------------------------------------
+
+
+def hash_to_field_limbs(messages, device, dst: bytes = DST_G2) -> torch.Tensor:
+    """Host SHA-256 hash_to_field -> (2, 2, 12, m): element u0/u1, Fp2
+    component, limb, message."""
+    us = [oh2c.hash_to_field_fp2(msg, 2, dst) for msg in messages]
+    return torch.stack([
+        torch.stack([lb.ints_to_limbs([u[e][c] for u in us], device) for c in range(2)])
+        for e in range(2)
+    ])
+
+
+# --- Device map -------------------------------------------------------------
+
+
+def _sgn0_fp2(a):
+    """RFC 9380 sgn0 on the standard form of (..., 2, 12, n)."""
+    std = lb.canonicalize(a)
+    a0, a1 = std[..., 0, :, :], std[..., 1, :, :]
+    sign0 = (a0[..., 0, :] & 1) == 1
+    zero0 = torch.all(a0 == 0, dim=-2)
+    sign1 = (a1[..., 0, :] & 1) == 1
+    return torch.logical_or(sign0, torch.logical_and(zero0, sign1))
+
+
+def map_to_curve_sswu_projective(u):
+    """(..., 2, 12, n) field elements -> (x_num, x_den, y) on E2'."""
+    c = consts(u.device)
+    tv1 = tw.fp2_mul(c.z, tw.fp2_sqr(u))
+    tv2 = lb.add(tw.fp2_sqr(tv1), tv1)
+    tv2_zero = tw.fp2_is_zero(tv2)
+    one = tw.consts(u.device).fp2_one
+    xn = tw.fp2_mul(c.b, lb.add(tv2, one))
+    den_inner = tw.fp2_select(tv2_zero, c.z.expand_as(tv2), lb.neg(tv2))
+    xd = tw.fp2_mul(c.a, den_inner)
+
+    sq = tw.fp2_sqr(torch.stack([xn, xd], dim=-4))
+    xn2, xd2 = sq.select(-4, 0), sq.select(-4, 1)
+    m = tw.fp2_mul(torch.stack([xn2, xd2, xd2], dim=-4),
+                   torch.stack([xn, xd, xn], dim=-4))
+    xn3, xd3, xnxd2 = m.select(-4, 0), m.select(-4, 1), m.select(-4, 2)
+    m2 = tw.fp2_mul(torch.stack([xnxd2, xd3], dim=-4),
+                    torch.stack(torch.broadcast_tensors(c.a, c.b), dim=-4))
+    gxn = lb.add(lb.add(xn3, m2.select(-4, 0)), m2.select(-4, 1))
+    is_sq, y1 = tw.fp2_sqrt_ratio(gxn, xd3)
+
+    m3 = tw.fp2_mul(torch.stack([tv1, tw.fp2_mul(tv1, u)], dim=-4),
+                    torch.stack([xn, y1], dim=-4))
+    x2n, y2 = m3.select(-4, 0), m3.select(-4, 1)
+    xn_out = tw.fp2_select(is_sq, xn, x2n)
+    y = tw.fp2_select(is_sq, y1, y2)
+    flip = torch.logical_xor(_sgn0_fp2(u), _sgn0_fp2(y))
+    y = tw.fp2_select(flip, lb.neg(y), y)
+    return xn_out, xd, y
+
+
+def iso_map_homogeneous(xn, xd, y):
+    """3-isogeny E2' -> E2 on a projective x: (..., 3, 2, 12, n) points."""
+    c = consts(xn.device)
+    sq = tw.fp2_sqr(torch.stack([xn, xd], dim=-4))
+    xn2, xd2 = sq.select(-4, 0), sq.select(-4, 1)
+    m = tw.fp2_mul(torch.stack([xn2, xd2, xn2], dim=-4),
+                   torch.stack([xn, xd, xd], dim=-4))
+    xn3, xd3, xn2xd = m.select(-4, 0), m.select(-4, 1), m.select(-4, 2)
+    xnxd2 = tw.fp2_mul(xn, xd2)
+    basis = torch.stack([xd3, xnxd2, xn2xd, xn3], dim=-4)
+
+    def hom_eval(coeffs):
+        prod = tw.fp2_mul(coeffs, basis)
+        acc = prod.select(-4, 0)
+        for i in range(1, coeffs.shape[0]):
+            acc = lb.add(acc, prod.select(-4, i))
+        return acc
+
+    xnum, xden, ynum, yden = (hom_eval(k) for k in (c.xn, c.xd, c.yn, c.yd))
+    m2 = tw.fp2_mul(torch.stack([xnum, ynum, xden], dim=-4),
+                    torch.stack([yden, y, yden], dim=-4))
+    X, yyn, Z = m2.select(-4, 0), m2.select(-4, 1), m2.select(-4, 2)
+    Y = tw.fp2_mul(yyn, xden)
+    return cv.G2.pack(X, Y, Z)
+
+
+def hash_to_g2_device(u):
+    """(2, 2, 12, m) field elements -> (3, 2, 12, m) projective G2 points."""
+    xn, xd, y = map_to_curve_sswu_projective(u)    # element axis leads
+    q = iso_map_homogeneous(xn, xd, y)             # (2, 3, 2, 12, m)
+    return cv.g2_clear_cofactor(cv.G2.add(q[0], q[1]))
+
+
+def hash_to_g2(messages, device=None, dst: bytes = DST_G2):
+    device = lb.default_device(device)
+    return hash_to_g2_device(hash_to_field_limbs(messages, device, dst))

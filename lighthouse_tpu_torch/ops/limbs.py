@@ -1,0 +1,266 @@
+"""Fp in the batch-minor layout: ``(..., 12, n)`` int32 tensors holding the
+32-bit limbs of x * 2^384 mod p, canonical in [0, p).
+
+Counterparts: ``lighthouse_tpu/ops/limbs.py`` (batch-major, 48 f32 digits
+on the last axis) and ``lighthouse_tpu/ops/bm/limbs.py`` (batch-minor,
+digits at axis -2). The JAX values are plain (not Montgomery) and only
+loose-canonical, in [0, 2^384); the port's are Montgomery and canonical, so
+equality is limb equality and comparisons with JAX go through integers mod
+p (``convert.to_ints``).
+
+The products are the K1 kernel (``fused.fp_mul``). Additions run as torch
+ops on int64 copies of the limbs, with carries resolved by a lookahead on
+packed bit vectors, and return canonical values too.
+"""
+
+from functools import lru_cache
+
+import numpy as np
+import torch
+
+from ..crypto.bls.constants import P
+from . import fused
+
+L = 12
+R = 1 << 384
+R_MOD_P = R % P
+R_INV = pow(R, -1, P)
+DTYPE = torch.int32
+_M32 = 0xFFFFFFFF
+
+
+def default_device(device=None) -> torch.device:
+    """Entry points take device=None, meaning the card. Without a card that
+    raises: the port never drops to the CPU on its own."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "lighthouse_tpu_torch: no CUDA device; pass device='cpu' to run "
+                "the plain PyTorch versions of the kernels")
+        return torch.device("cuda")
+    return torch.device(device)
+
+
+# --- Host staging -----------------------------------------------------------
+
+
+def ints_to_limbs_np(xs) -> np.ndarray:
+    """Python ints -> (12, n) int32 Montgomery limbs (numpy)."""
+    buf = b"".join((x * R_MOD_P % P).to_bytes(4 * L, "little") for x in xs)
+    arr = np.frombuffer(buf, dtype="<i4").reshape(-1, L)
+    return arr.T.copy()
+
+
+def ints_to_limbs(xs, device) -> torch.Tensor:
+    return torch.from_numpy(ints_to_limbs_np(list(xs))).to(device)
+
+
+def limbs_to_ints(v) -> list:
+    """(..., 12, n) limbs -> flat list of standard-form ints (trailing batch
+    axis fastest within each leading index)."""
+    arr = np.moveaxis(v.detach().cpu().numpy().astype("<i4"), -2, -1)
+    rows = np.ascontiguousarray(arr).reshape(-1, L)
+    return [int.from_bytes(r.tobytes(), "little") * R_INV % P for r in rows]
+
+
+class _Consts:
+    def __init__(self, device):
+        def col(vals):
+            return torch.tensor(vals, dtype=torch.int64, device=device)[:, None]
+
+        self.p64 = col([(P >> (32 * i)) & _M32 for i in range(L)])
+        self.pow2 = col([1 << i for i in range(L)])
+        self.idx = col(list(range(L)))
+        self.zero = torch.zeros((L, 1), dtype=DTYPE, device=device)
+        self.one = ints_to_limbs([1], device)            # Montgomery 1
+        self.raw_one = torch.zeros((L, 1), dtype=DTYPE, device=device)
+        self.raw_one[0, 0] = 1                            # 2^-384 * R: de-Montgomery
+
+
+@lru_cache(maxsize=None)
+def consts(device) -> _Consts:
+    return _Consts(torch.device(device))
+
+
+def zero(device):
+    return consts(device).zero
+
+
+def one(device):
+    return consts(device).one
+
+
+# --- Modular addition -------------------------------------------------------
+
+
+def _u64(x):
+    return x.to(torch.int64) & _M32
+
+
+def _i32(v):
+    return torch.where(v > 0x7FFFFFFF, v - (1 << 32), v).to(DTYPE)
+
+
+def _lookahead(gen, prop, c):
+    """Carries into each limb from generate/propagate flags:
+    ((G << 1) + P) ^ P on packed bit vectors. Returns (carries, carry out)."""
+    G = (gen.to(torch.int64) * c.pow2).sum(-2)
+    Pb = (prop.to(torch.int64) * c.pow2).sum(-2)
+    C = ((G << 1) + Pb) ^ Pb
+    return (C.unsqueeze(-2) >> c.idx) & 1, ((C >> L) & 1).bool()
+
+
+def _add64(s, c):
+    """Resolve limb sums in [0, 2^33) to limbs mod 2^384."""
+    carry, _ = _lookahead(s > _M32, s == _M32, c)
+    return (s + carry) & _M32
+
+
+def _sub64(d, c):
+    """Resolve limb differences in (-2^32, 2^32) -> (limbs mod 2^384,
+    borrow out)."""
+    borrow, out = _lookahead(d < 0, d == 0, c)
+    return (d - borrow) & _M32, out
+
+
+def add(a, b):
+    a, b = torch.broadcast_tensors(a, b)
+    c = consts(a.device)
+    s = _add64(_u64(a) + _u64(b), c)                 # a + b < 2p < 2^384
+    d, under = _sub64(s - c.p64, c)
+    return _i32(torch.where(under.unsqueeze(-2), s, d))
+
+
+def sub(a, b):
+    a, b = torch.broadcast_tensors(a, b)
+    c = consts(a.device)
+    d, under = _sub64(_u64(a) - _u64(b), c)
+    s = _add64(d + c.p64, c)                         # (a - b + p) mod 2^384
+    return _i32(torch.where(under.unsqueeze(-2), s, d))
+
+
+def neg(a):
+    return sub(torch.zeros_like(a), a)
+
+
+def mul_small(a, k: int):
+    """a * k for a small positive int k, by doubling and adding."""
+    acc = None
+    dbl = a
+    while k:
+        if k & 1:
+            acc = dbl if acc is None else add(acc, dbl)
+        k >>= 1
+        if k:
+            dbl = add(dbl, dbl)
+    return acc
+
+
+# --- Products (K1) ----------------------------------------------------------
+
+
+def _pair(a, b):
+    a, b = torch.broadcast_tensors(a, b)
+    return a.contiguous(), b.contiguous()
+
+
+def mul(a, b):
+    return fused.fp_mul(*_pair(a, b))
+
+
+def sqr(a):
+    return fused.fp_sqr(a.contiguous())
+
+
+# --- Canonical form & comparisons ------------------------------------------
+
+
+def canonicalize(a):
+    """Standard-form canonical limbs of the value (a * 2^-384 on the stored
+    Montgomery form): the port's counterpart of limbs.canonicalize, whose
+    output is the value's unique digits in [0, p)."""
+    raw_one = consts(a.device).raw_one
+    return mul(a, raw_one.expand_as(a))
+
+
+def is_zero(a):
+    return torch.all(a == 0, dim=-2)
+
+
+def eq(a, b):
+    return torch.all(a == b, dim=-2)
+
+
+def select(mask, a, b):
+    """mask (..., n) bool -> limbwise select over (..., 12, n)."""
+    return torch.where(mask.unsqueeze(-2), a, b)
+
+
+def tree_reduce(vals, combine, identity, axis_size: int):
+    """Reduce along the LEADING axis in log2 depth (the K/pubkey axis),
+    padding with `identity` broadcast to one slice."""
+    n = 1
+    while n < axis_size:
+        n *= 2
+    if n != axis_size:
+        pad = identity.expand((n - axis_size,) + vals.shape[1:])
+        vals = torch.cat([vals, pad], dim=0)
+    while n > 1:
+        half = n // 2
+        vals = combine(vals[:half], vals[half:])
+        n = half
+    return vals[0]
+
+
+def tree_reduce_minor(vals, combine, identity, axis_size: int):
+    """Reduce (..., n) along the trailing batch axis in log2 depth, padding
+    with `identity` (trailing dim 1). Keeps a trailing batch axis of 1."""
+    n = 1
+    while n < axis_size:
+        n *= 2
+    if n != axis_size:
+        pad = identity.expand(vals.shape[:-1] + (n - axis_size,))
+        vals = torch.cat([vals, pad], dim=-1)
+    while n > 1:
+        half = n // 2
+        vals = combine(vals[..., :half], vals[..., half:])
+        n = half
+    return vals
+
+
+def pow_fixed_generic(a, exponent: int, one_, mul_, sqr_):
+    """a^exponent for a public exponent: a 4-bit fixed window (limbs.pow_fixed
+    semantics), run as a Python loop of kernel calls."""
+    if exponent == 0:
+        return one_.expand_as(a).contiguous()
+    if exponent < 16:
+        acc = a
+        for c in bin(exponent)[3:]:
+            acc = sqr_(acc)
+            if c == "1":
+                acc = mul_(acc, a)
+        return acc
+    digits = []
+    e = exponent
+    while e:
+        digits.append(e & 15)
+        e >>= 4
+    digits = digits[::-1]
+    table = [one_.expand_as(a).contiguous(), a, sqr_(a)]
+    for _ in range(13):
+        table.append(mul_(table[-1], a))
+    acc = table[digits[0]]
+    for d in digits[1:]:
+        acc = sqr_(sqr_(sqr_(sqr_(acc))))
+        if d:
+            acc = mul_(acc, table[d])
+    return acc
+
+
+def pow_fixed(a, exponent: int):
+    return pow_fixed_generic(a, exponent, one(a.device), mul, sqr)
+
+
+def inv(a):
+    """a^(p-2); zero maps to zero."""
+    return pow_fixed(a, P - 2)
