@@ -8,16 +8,23 @@ Phases, each printing one JSON line:
             (one nvcc per source, started together).
 2. kernels  every kernel variant against its plain PyTorch version on the
             card, bit for bit, at n = 64, 4096 and 16384 elements from a
-            seed (edge values p - 1 and 0 included), with its time, the
-            plain version's time and its bound.
+            seed (edge values p - 1 and 0 included), with its time (one
+            call replayed from a CUDA graph, and a back-to-back wrapper
+            call with its dispatch), the plain version's time and its
+            bound.
 3. verify   the main path, batch signature-set verification: 4096 sets x 4
             keys over 64 distinct messages must verify True (once more
             split into its stages for their wall times), the same batch
             with one poisoned set in a shared-message group False, 256
             one-key sets with distinct messages True, and find_invalid_sets
             must name the one culprit among 32 sets. Launch counts are reset
-            just before the headline batch and read just after it.
-4. vectors  every verify / fast_aggregate_verify / batch_verify case under
+            just before the headline batch and read just after it; the
+            warm-up run before it records each kernel's operand shapes.
+4. main_path_shapes
+            every kernel against its plain version again, bit for bit, at
+            each operand shape the headline verify gave it (stacked rows of
+            Fp2 products, K3 at n = m + 1 pairs and at n = 1).
+5. vectors  every verify / fast_aggregate_verify / batch_verify case under
             tests/vectors/general/phase0/bls/*/small must give its output.
 
 Then the card's name and power limit, the kernel summary line, and last
@@ -44,14 +51,23 @@ HEADLINE = dict(n_sets=4096, keys=4, distinct=64)
 HBM_BYTES_PER_S = 3.35e12
 INT32_MAD_PER_S = 33.5e12 / 2
 
-# Per element: 32-bit multiply-adds (a 12x12-limb product is 144, a
-# Montgomery REDC 144) and bytes read + written (an Fp is 48 bytes).
+# Per element: the 32-bit multiply-adds the function needs, and the bytes it
+# must move (each operand read once, the result written once; an Fp is 48
+# bytes). A product of two 12-limb Fp values is 144 multiply-adds (a square
+# 78) and a Montgomery reduction 144. An Fp2 product needs 3 Fp products
+# (Karatsuba; a square 2), an Fp6 product 6 Fp2 products, an Fp12 product 3
+# Fp6 products (18 Fp2) and an Fp12 square 2 (12 Fp2). The sparse line
+# needs 14 Fp2 products: a0 * l0 (3), a1 * (l1 v + l2 v^2) (5) and
+# (a0 + a1) * (l0 + l1 v + l2 v^2) (6). Lazy reduction reduces each Fp
+# output once. The kernels do more (K3 runs 36 schoolbook Fp2 products of 4
+# Fp products each); the bound counts what the function needs.
+FP_PROD, FP_SQR, REDC = 144, 78, 144
 WORK = {
-    "fp_mul": (288, 3 * 48), "fp_sqr": (288, 2 * 48),
-    "fp2_mul": (4 * 144 + 2 * 144, 3 * 96), "fp2_sqr": (4 * 144 + 2 * 144, 2 * 96),
-    "fp12_sqr": (36 * 4 * 144 + 12 * 144, 2 * 576),
-    "fp12_mul": (36 * 4 * 144 + 12 * 144, 3 * 576),
-    "fp12_line": (18 * 4 * 144 + 12 * 144, 2 * 576 + 288),
+    "fp_mul": (FP_PROD + REDC, 3 * 48), "fp_sqr": (FP_SQR + REDC, 2 * 48),
+    "fp2_mul": (3 * FP_PROD + 2 * REDC, 3 * 96), "fp2_sqr": (2 * FP_PROD + 2 * REDC, 2 * 96),
+    "fp12_sqr": (12 * 3 * FP_PROD + 12 * REDC, 2 * 576),
+    "fp12_mul": (18 * 3 * FP_PROD + 12 * REDC, 3 * 576),
+    "fp12_line": (14 * 3 * FP_PROD + 12 * REDC, 2 * 576 + 288),
 }
 SOURCES = {
     "fp_mul": ("lighthouse_tpu_torch/ops/csrc/fp_mul.cu",
@@ -73,12 +89,32 @@ def nvidia_smi(query: str) -> str:
 
 
 def cuda_ms(fn, reps: int) -> float:
+    """Mean ms of back-to-back calls: the wrapper's dispatch included."""
     fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(reps):
         fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Mean ms of one call replayed from a CUDA graph of `reps` calls: the
+    kernel's time on the card, without the host's dispatch."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
@@ -112,8 +148,25 @@ def _rand_fp(shape, gen):
     x = torch.randint(0, 1 << 32, shape, generator=gen, device="cuda", dtype=torch.int64)
     x[..., 11, :] %= 0x1A0111EA
     edge = lb.ints_to_limbs([lb.P - 1, 0], "cuda").to(torch.int64) & 0xFFFFFFFF
-    x[..., :, :2] = edge
+    k = min(2, shape[-1])
+    x[..., :, :k] = edge[:, :k]
     return torch.where(x > 0x7FFFFFFF, x - (1 << 32), x).to(torch.int32).contiguous()
+
+
+def _compare(name, shapes, gen):
+    """Kernel `name` against its plain version on random operands of the
+    given shapes, tolerance 0 -> (operands, max |limb difference|)."""
+    from lighthouse_tpu_torch.ops import fused
+
+    xs = [_rand_fp(shape, gen) for shape in shapes]
+    got = fused.WRAPPERS[name](*xs)
+    ref = fused.PLAIN[name](*xs)
+    torch.cuda.synchronize()
+    diff = (got.to(torch.int64) & 0xFFFFFFFF) - (ref.to(torch.int64) & 0xFFFFFFFF)
+    mism = int(diff.ne(0).any(dim=-2).sum())
+    if mism:
+        raise AssertionError(f"{name} at {shapes}: {mism} elements differ from the plain version")
+    return xs, int(diff.abs().max())
 
 
 def phase_kernels():
@@ -121,36 +174,43 @@ def phase_kernels():
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
-    tails = {"fp": (12,), "fp2": (2, 12), "fp12": (2, 3, 2, 12), "line": (3, 2, 12)}
-    wrappers = {"fp_mul": fused.fp_mul, "fp_sqr": fused.fp_sqr, "fp2_mul": fused.fp2_mul,
-                "fp2_sqr": fused.fp2_sqr, "fp12_sqr": fused.fp12_sqr,
-                "fp12_mul": fused.fp12_mul, "fp12_line": fused.fp12_mul_line}
     results = {}
     for name, (_, _, kinds) in fused._KERNELS.items():
         per_n = {}
         for n in NS:
-            xs = [_rand_fp(tails[k] + (n,), gen) for k in kinds]
-            got = wrappers[name](*xs)
-            ref = fused.PLAIN[name](*xs)
-            torch.cuda.synchronize()
-            diff = (got.to(torch.int64) & 0xFFFFFFFF) - (ref.to(torch.int64) & 0xFFFFFFFF)
-            mism = int(diff.ne(0).any(dim=-2).sum())
-            err = int(diff.abs().max())
-            if mism:
-                raise AssertionError(f"{name} n={n}: {mism} elements differ from the plain version")
+            xs, err = _compare(name, [fused._TAIL[k] + (n,) for k in kinds], gen)
             reps = 200 if n < 16384 else 50
-            ms = cuda_ms(lambda: wrappers[name](*xs), reps)
+            call_ms = cuda_ms(lambda: fused.WRAPPERS[name](*xs), reps)
+            ms = graph_ms(lambda: fused.WRAPPERS[name](*xs), reps)
             plain_ms = cuda_ms(lambda: fused.PLAIN[name](*xs), 3)
             mads, nbytes = WORK[name]
             t_ops, t_bytes = n * mads / INT32_MAD_PER_S * 1e3, n * nbytes / HBM_BYTES_PER_S * 1e3
-            per_n[n] = {"mismatches": mism, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                        "bound_ms": max(t_ops, t_bytes),
+            per_n[n] = {"mismatches": 0, "max_abs_err": err, "ms": ms, "call_ms": call_ms,
+                        "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
                         "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
         results[name] = per_n
         emit({"phase": "kernels", "kernel": name, "tolerance": 0, "by_n": per_n,
               "library_ms": None})
     fused.reset_launches()      # the comparison launches do not count
     return results
+
+
+def phase_main_path_shapes(shapes):
+    """Every kernel against its plain version at each operand shape the
+    headline verify gave it (stacked leading rows included), tolerance 0."""
+    from lighthouse_tpu_torch.ops import fused
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 1)
+    errs = {}
+    for name in fused._KERNELS:
+        if not shapes[name]:
+            raise AssertionError(f"no main-path shapes recorded for {name}")
+        errs[name] = max(_compare(name, list(sh), gen)[1] for sh in sorted(shapes[name]))
+        emit({"phase": "main_path_shapes", "kernel": name, "tolerance": 0, "mismatches": 0,
+              "max_abs_err": errs[name], "shapes": sorted(shapes[name])})
+    fused.reset_launches()
+    return errs
 
 
 def _sign_sets(api, count, keys, msg_of, key_base):
@@ -211,7 +271,20 @@ def phase_verify():
     sets = (base * (n // len(base) + 1))[:n]
     sign_s = time.perf_counter() - t0
 
-    ok, warm_s = _timed_verify(api, sets)           # first run: allocator warm-up
+    # First run: allocator warm-up, and the record of every operand shape
+    # the main path gives each kernel (the timed run below goes unwatched).
+    shapes = {name: set() for name in fused.launches}
+    run = fused._run
+
+    def watch(name, *xs):
+        shapes[name].add(tuple(tuple(x.shape) for x in xs))
+        return run(name, *xs)
+
+    fused._run = watch
+    try:
+        ok, warm_s = _timed_verify(api, sets)
+    finally:
+        fused._run = run
     if ok is not True:
         raise AssertionError("headline batch did not verify")
     fused.reset_launches()
@@ -255,7 +328,7 @@ def phase_verify():
           "distinct_256": {"verified": ok256, "wall_s": d_s, "sigs_per_s": 256 / d_s},
           "find_invalid_32": {"culprits": culprits, "wall_s": find_s},
           "host_signing_s": sign_s + sign2_s})
-    return launches
+    return launches, shapes
 
 
 def _vector_sets(api, kind, inp):
@@ -306,7 +379,8 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_env()
     kernels = phase_kernels()
-    launches = phase_verify()
+    launches, shapes = phase_verify()
+    shape_errs = phase_main_path_shapes(shapes)
     phase_vectors()
     summary = []
     for name, per_n in kernels.items():
@@ -314,7 +388,8 @@ def main() -> int:
         top = per_n[max(NS)]
         summary.append({"name": name, "route": "cuda", "source": SOURCES[lib][0],
                         "replaces": SOURCES[lib][1], "launches": launches[name],
-                        "max_abs_err": max(v["max_abs_err"] for v in per_n.values()),
+                        "max_abs_err": max([shape_errs[name]]
+                                           + [v["max_abs_err"] for v in per_n.values()]),
                         "ms": top["ms"], "plain_ms": top["plain_ms"],
                         "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
                         "library_ms": None, "n": max(NS)})

@@ -217,7 +217,7 @@ def core(u, inv_idx, row_mask, pk_proj, sig_proj, sig_checked, set_mask, scalars
     return _pairing_check(p_proj, h_unique, s_proj, row_mask, sets_valid)
 
 
-def verify_signature_sets_gpu(sets, device=None, scalars=None) -> bool:
+def verify_signature_sets_gpu(sets, device=None) -> bool:
     """Batch-verify SignatureSets on `device` (default: the card). Host
     early-outs match the oracle: empty batch, a set without keys, an
     infinity signature."""
@@ -228,7 +228,7 @@ def verify_signature_sets_gpu(sets, device=None, scalars=None) -> bool:
     for s in sets:
         if not s.signing_keys or s.signature.point is None:
             return False
-    args, m_bucket, all_checked = stage(sets, device, scalars)
+    args, m_bucket, all_checked = stage(sets, device)
     return bool(core(*args, m_bucket=m_bucket, all_checked=all_checked).item())
 
 

@@ -27,10 +27,13 @@ take the kernels' signed sums term for term from the same tables, and
 those tables are checked against the kernels' accumulator bounds.
 
 What bounds the kernels on an H100 (3.35 TB/s, 16.75e12 32-bit
-multiply-adds/s, i.e. 5 multiply-adds per byte): K1 does 288 multiply-adds
-per 144 bytes and K2 864 per 288, so both are bound by bytes; K3 does
-22,464 per 1,728 bytes (mul), bound by integer multiply-adds. One thread
-owns one element in all three; none uses tensor cores.
+multiply-adds/s, i.e. 5 multiply-adds per byte), counting the work each
+function needs (Karatsuba products, one reduction per output; chip_smoke.py
+WORK): K1 needs 288 multiply-adds per 144 bytes and K2 720 per 288, so both
+are bound by bytes; K3 mul needs 9,504 per 1,728 bytes, bound by integer
+multiply-adds. K3 does more than it needs: 36 schoolbook Fp2 products of 4
+Fp products each (22,464 multiply-adds for mul). One thread owns one
+element in all three; none uses tensor cores.
 """
 
 import math
@@ -424,3 +427,9 @@ def fp12_mul_line(a, line):
     """K3: a * (l0 + l1 w^3 + l2 w^5), line = stack(l0, l1, l2) of shape
     (..., 3, 2, 12, n)."""
     return _run("fp12_line", a, line)
+
+
+WRAPPERS = {
+    "fp_mul": fp_mul, "fp_sqr": fp_sqr, "fp2_mul": fp2_mul, "fp2_sqr": fp2_sqr,
+    "fp12_sqr": fp12_sqr, "fp12_mul": fp12_mul, "fp12_line": fp12_mul_line,
+}
