@@ -7,11 +7,13 @@ Phases, each printing one JSON line:
 1. env      the card, the toolchain, and the build of every CUDA kernel
             (one nvcc per source, started together).
 2. kernels  every kernel variant against its plain PyTorch version on the
-            card, bit for bit, at n = 64, 4096 and 16384 elements from a
-            seed (edge values p - 1 and 0 included), with its time (one
-            call replayed from a CUDA graph, and a back-to-back wrapper
-            call with its dispatch), the plain version's time and its
-            bound.
+            card, bit for bit, at n = 1, 65, 64, 4096 and 16384 elements
+            from a seed (edge values p - 1 and 0 included; n = 1 and 65
+            are where the main path runs K3: the final exponentiation's
+            chain and the Miller loop's m + 1 pairs), each with its time
+            (one call replayed from a CUDA graph, and a back-to-back
+            wrapper call with its dispatch), the plain version's time and
+            its bound.
 3. verify   the main path, batch signature-set verification: 4096 sets x 4
             keys over 64 distinct messages must verify True (once more
             split into its stages for their wall times), the same batch
@@ -19,7 +21,8 @@ Phases, each printing one JSON line:
             one-key sets with distinct messages True, and find_invalid_sets
             must name the one culprit among 32 sets. Launch counts are reset
             just before the headline batch and read just after it; the
-            warm-up run before it records each kernel's operand shapes.
+            warm-up run before it records each kernel's operand shapes and
+            its launches per operand n.
 4. main_path_shapes
             every kernel against its plain version again, bit for bit, at
             each operand shape the headline verify gave it (stacked rows of
@@ -30,6 +33,11 @@ Phases, each printing one JSON line:
 Then the card's name and power limit, the kernel summary line, and last
 {"ok": true, "device": {...}}. Any failure raises: the exit code is then
 not 0 and the last line is not printed. Without a card it exits 1 at once.
+
+    python3 chip_smoke.py --kernels-only
+
+runs phases 1 and 2 alone and prints the kernel summary: the quick way to
+time two trees' kernels in one call on one card.
 """
 
 import json
@@ -42,7 +50,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 SEED = 20261017
-NS = (64, 4096, 16384)
+NS = (1, 65, 64, 4096, 16384)
 HEADLINE = dict(n_sets=4096, keys=4, distinct=64)
 
 # H100 SXM peaks (NVIDIA H100 data sheet / Hopper white paper, 700 W):
@@ -274,10 +282,13 @@ def phase_verify():
     # First run: allocator warm-up, and the record of every operand shape
     # the main path gives each kernel (the timed run below goes unwatched).
     shapes = {name: set() for name in fused.launches}
+    by_n = {name: {} for name in fused.launches}
     run = fused._run
 
     def watch(name, *xs):
         shapes[name].add(tuple(tuple(x.shape) for x in xs))
+        n = xs[0].shape[-1]
+        by_n[name][n] = by_n[name].get(n, 0) + 1
         return run(name, *xs)
 
     fused._run = watch
@@ -323,7 +334,9 @@ def phase_verify():
                                           "distinct_messages": HEADLINE["distinct"],
                                           "verified": ok, "wall_s": wall_s,
                                           "first_run_s": warm_s, "sigs_per_s": n / wall_s,
-                                          "launches": launches, "stages_s": stages_s},
+                                          "launches": launches, "stages_s": stages_s,
+                                          "launches_by_n": {k: dict(sorted(v.items()))
+                                                            for k, v in by_n.items()}},
           "poisoned": {"verified": bad, "wall_s": bad_s},
           "distinct_256": {"verified": ok256, "wall_s": d_s, "sigs_per_s": 256 / d_s},
           "find_invalid_32": {"culprits": culprits, "wall_s": find_s},
@@ -370,29 +383,42 @@ def phase_vectors():
     emit({"phase": "vectors", "passed": len(cases), "cases": cases})
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 1
-    import lighthouse_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
-
-    t0 = time.perf_counter()
-    phase_env()
-    kernels = phase_kernels()
-    launches, shapes = phase_verify()
-    shape_errs = phase_main_path_shapes(shapes)
-    phase_vectors()
+def _summary(kernels, launches, shape_errs):
     summary = []
     for name, per_n in kernels.items():
         lib = "fp12_op" if name.startswith("fp12") else ("fp2_mul" if name.startswith("fp2") else "fp_mul")
         top = per_n[max(NS)]
         summary.append({"name": name, "route": "cuda", "source": SOURCES[lib][0],
-                        "replaces": SOURCES[lib][1], "launches": launches[name],
-                        "max_abs_err": max([shape_errs[name]]
+                        "replaces": SOURCES[lib][1], "launches": launches.get(name),
+                        "max_abs_err": max([shape_errs.get(name, 0)]
                                            + [v["max_abs_err"] for v in per_n.values()]),
                         "ms": top["ms"], "plain_ms": top["plain_ms"],
                         "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
-                        "library_ms": None, "n": max(NS)})
+                        "library_ms": None, "n": max(NS),
+                        "ms_by_n": {n: v["ms"] for n, v in per_n.items()}})
+    return summary
+
+
+def main(argv) -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    if argv not in ([], ["--kernels-only"]):
+        print(f"usage: chip_smoke.py [--kernels-only], not {argv}", file=sys.stderr)
+        return 2
+    import lighthouse_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
+
+    t0 = time.perf_counter()
+    phase_env()
+    kernels = phase_kernels()
+    if argv:
+        print(nvidia_smi("name,power.limit"), flush=True)
+        emit({"kernels": _summary(kernels, {}, {})})
+        return 0
+    launches, shapes = phase_verify()
+    shape_errs = phase_main_path_shapes(shapes)
+    phase_vectors()
+    summary = _summary(kernels, launches, shape_errs)
     emit({"phase": "done", "seconds": time.perf_counter() - t0})
     print(nvidia_smi("name,power.limit"), flush=True)
     emit({"kernels": summary})
@@ -402,4 +428,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

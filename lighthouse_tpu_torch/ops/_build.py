@@ -3,9 +3,11 @@
 Each source in ``ops/csrc/*.cu`` becomes one shared library with a plain C
 interface (no PyTorch headers, so a build takes seconds). Libraries land in
 ``lighthouse_tpu_torch/_build/``, named by a hash of the sources and flags, so
-a changed source rebuilds and an unchanged one is reused. The first call to
-``library`` builds every source at once, one nvcc process each, all started
-together. Nothing is built or imported at module import.
+a changed source rebuilds and an unchanged one is reused. A source may
+include headers generated from Python (``GENERATED``): they are written
+beside its library and hashed with it. The first call to ``library``
+builds every source at once, one nvcc process each, all started together.
+Nothing is built or imported at module import.
 """
 
 import ctypes
@@ -33,6 +35,15 @@ _LIBS: dict = {}
 BUILD_SECONDS: dict = {}
 
 
+def _k3_plan_header() -> str:
+    from . import fused     # imports this module: bound at call time
+    return fused.k3_plan_header()
+
+
+# Headers generated from Python per source: name -> {file name: text maker}.
+GENERATED = {"fp12_op": {"k3_plan.h": _k3_plan_header}}
+
+
 def nvcc() -> str:
     found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(found):
@@ -40,10 +51,16 @@ def nvcc() -> str:
     return found
 
 
+def _generated(name: str) -> dict:
+    return {file: make() for file, make in GENERATED.get(name, {}).items()}
+
+
 def _digest(name: str) -> str:
     h = hashlib.sha256()
     for path in (CSRC / "fp.cuh", CSRC / f"{name}.cu"):
         h.update(path.read_bytes())
+    for file, text in sorted(_generated(name).items()):
+        h.update(file.encode() + text.encode())
     h.update(" ".join(ARCH_FLAGS + FLAGS).encode())
     return h.hexdigest()[:16]
 
@@ -64,8 +81,13 @@ def build_all() -> dict:
         if target.exists():
             continue
         tmp = target.with_suffix(f".{os.getpid()}.tmp")
+        gen = target.with_suffix(".gen")
+        gen.mkdir(exist_ok=True)
+        for file, text in _generated(name).items():
+            (gen / file).write_text(text)
         log = open(target.with_suffix(".log"), "w")
-        cmd = [nvcc()] + ARCH_FLAGS + FLAGS + ["-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = ([nvcc()] + ARCH_FLAGS + FLAGS
+               + ["-I", str(gen), "-o", str(tmp), str(CSRC / f"{name}.cu")])
         procs[name] = (subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT), tmp, target, log)
     failed = []
     for name, (proc, tmp, target, log) in procs.items():

@@ -48,26 +48,29 @@ __device__ __forceinline__ void store(uint32_t* dst, const uint32_t* x, long lon
   for (int l = 0; l < NL; ++l) dst[l * n] = x[l];
 }
 
-// t = a * b (24 limbs), product scanning with a 96-bit column accumulator.
+// t = a * b (24 limbs), operand scanning: row i adds a[i] * b into
+// t[i .. i + 12] with a 64-bit carry (a[i] b[j] + t[i + j] + carry < 2^64),
+// each step one 32 x 32 + 64 multiply-add.
 __device__ __forceinline__ void mul_wide(const uint32_t* a, const uint32_t* b, uint32_t* t) {
-  uint64_t lo = 0;
-  uint32_t hi = 0;
+  uint64_t c = 0;
 #pragma unroll
-  for (int k = 0; k < NW - 1; ++k) {
-#pragma unroll
-    for (int i = 0; i < NL; ++i) {
-      const int j = k - i;
-      if (j >= 0 && j < NL) {
-        const uint64_t p = (uint64_t)a[i] * b[j];
-        lo += p;
-        hi += (lo < p);
-      }
-    }
-    t[k] = (uint32_t)lo;
-    lo = (lo >> 32) | ((uint64_t)hi << 32);
-    hi = 0;
+  for (int j = 0; j < NL; ++j) {
+    c += (uint64_t)a[0] * b[j];
+    t[j] = (uint32_t)c;
+    c >>= 32;
   }
-  t[NW - 1] = (uint32_t)lo;
+  t[NL] = (uint32_t)c;
+#pragma unroll
+  for (int i = 1; i < NL; ++i) {
+    c = 0;
+#pragma unroll
+    for (int j = 0; j < NL; ++j) {
+      c += (uint64_t)a[i] * b[j] + t[i + j];
+      t[i + j] = (uint32_t)c;
+      c >>= 32;
+    }
+    t[i + NL] = (uint32_t)c;
+  }
 }
 
 // t += x (mod 2^768; callers keep the sum below 2^768).

@@ -31,9 +31,12 @@ multiply-adds/s, i.e. 5 multiply-adds per byte), counting the work each
 function needs (Karatsuba products, one reduction per output; chip_smoke.py
 WORK): K1 needs 288 multiply-adds per 144 bytes and K2 720 per 288, so both
 are bound by bytes; K3 mul needs 9,504 per 1,728 bytes, bound by integer
-multiply-adds. K3 does more than it needs: 36 schoolbook Fp2 products of 4
-Fp products each (22,464 multiply-adds for mul). One thread owns one
-element in all three; none uses tensor cores.
+multiply-adds. K1 and K2 give one element to one thread. K3 gives one
+element's Fp products to the lanes of a block: a warp per group of at most
+32 products, one product per lane, the groups and their signed column sums
+planned here (``k3_plan_words``) and handed to the kernel as a generated
+header; its square runs 78 distinct Fp products, its product the 144 of
+the schoolbook. None uses tensor cores.
 """
 
 import math
@@ -267,6 +270,80 @@ def _k3_table(kind: str) -> _Table:
 
 
 _K3_TABLES = {kind: _k3_table(kind) for kind in ("sqr", "mul", "line")}
+
+# The K3 kernel's plan (csrc/fp12_op.cu). A warp of the kernel runs one
+# group of Fp products of one element, one product per lane, and sums them
+# by columns into the group's accumulators (at most four Fp outputs). The
+# groups come from the table above: its products grouped by the output Fp2
+# they feed (each feeds one), a square's mirrored pair a_x a_y, a_y a_x
+# merged into one product of multiplicity 2, and output Fp2s packed first
+# fit, largest first, into groups of at most 32 products. The sums per
+# accumulator are the table's, so its bound (16 p^2 offset, at most 17
+# added and 16 subtracted products) holds as it is.
+K3_LANES = 32
+K3_GROUP_ACCS = 4
+K3_HAS = 1 << 31
+
+
+def _k3_plan(kind: str):
+    """[(accumulators, [(x coord, y coord, multiplicity per accumulator)])]
+    per group."""
+    table = _K3_TABLES[kind]
+    slots = [{} for _ in range(6)]                      # output Fp2 -> {(x, y): [re, im]}
+    for lst, sign in ((table.pos, 1), (table.neg, -1)):
+        for k, dest in lst:
+            x, y = table.xs[k], table.ys[k]
+            if kind == "sqr":
+                x, y = min(x, y), max(x, y)
+            slots[dest // 2].setdefault((x, y), [0, 0])[dest % 2] += sign
+    groups = []
+    for s in sorted(range(6), key=lambda s: -len(slots[s])):
+        group = next((g for g in groups if len(g[1]) + len(slots[s]) <= K3_LANES
+                      and len(g[0]) + 2 <= K3_GROUP_ACCS), None)
+        if group is None:
+            group = ([], [])
+            groups.append(group)
+        accs, products = group
+        for (x, y), (re, im) in sorted(slots[s].items()):
+            mult = [0] * K3_GROUP_ACCS
+            mult[len(accs)], mult[len(accs) + 1] = re, im
+            products.append((x, y, tuple(mult)))
+        accs += [2 * s, 2 * s + 1]
+    return [(tuple(accs), products) for accs, products in groups]
+
+
+def k3_plan_words(kind: str):
+    """The plan as the kernel reads it: per group 1 + 32 uint32 words. Word
+    0: the number of accumulators (bits 0-3) and accumulator j's Fp output
+    index at bits 4 + 4j. Word 1 + k, lane k's product: bit 31 set, x
+    coordinate at bits 0-3, y coordinate at bits 4-7, and the signed
+    multiplicity for accumulator j at bits 8 + 4j (4 bits each). A lane
+    without a product has word 0; the lanes with products come first."""
+    out = []
+    for accs, products in _k3_plan(kind):
+        head = len(accs) | sum(a << (4 + 4 * j) for j, a in enumerate(accs))
+        words = [K3_HAS | x | (y << 4) | sum((m & 15) << (8 + 4 * j) for j, m in enumerate(mult))
+                 for x, y, mult in products]
+        out.append([head] + words + [0] * (K3_LANES - len(words)))
+    return out
+
+
+def k3_plan_header() -> str:
+    """csrc/fp12_op.cu's generated header (written at build time by
+    ``_build``): per kind its group count, its largest group and the plan
+    words as an initializer."""
+    lines = ["// Generated by lighthouse_tpu_torch/ops/fused.py (k3_plan_header) from",
+             "// the K3 tables: the product plan of csrc/fp12_op.cu. Do not edit.",
+             "#pragma once"]
+    for kind in ("sqr", "mul", "line"):
+        words = k3_plan_words(kind)
+        most = max(sum(1 for w in g[1:] if w) for g in words)
+        rows = ", \\\n".join("    {" + ", ".join(f"0x{w:08x}u" for w in g) + "}" for g in words)
+        name = kind.upper()
+        lines += [f"#define LH_K3_GROUPS_{name} {len(words)}",
+                  f"#define LH_K3_PRODUCTS_{name} {most}",
+                  f"#define LH_K3_PLAN_{name} {{ \\", rows + "}"]
+    return "\n".join(lines) + "\n"
 
 
 def _lazy_plain(table: _Table, x, y):
