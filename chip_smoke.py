@@ -13,7 +13,12 @@ Phases, each printing one JSON line:
             chain and the Miller loop's m + 1 pairs), each with its time
             (one call replayed from a CUDA graph, and a back-to-back
             wrapper call with its dispatch), the plain version's time and
-            its bound.
+            its bound. Both K2 entries are also timed at the main path's
+            heaviest operand shapes (K2_SHAPES), each beside floor_ms, an
+            empty kernel on K2's grid timed the same way.
+   wrapper  the host's cost of the parts of one K2 wrapper call (checks,
+            output allocation, library lookup, device context, stream,
+            the ctypes launch), each timed alone over many calls.
 3. verify   the main path, batch signature-set verification: 4096 sets x 4
             keys over 64 distinct messages must verify True (once more
             split into its stages for their wall times), the same batch
@@ -22,11 +27,13 @@ Phases, each printing one JSON line:
             must name the one culprit among 32 sets. Launch counts are reset
             just before the headline batch and read just after it; the
             warm-up run before it records each kernel's operand shapes and
-            its launches per operand n.
+            its launches per operand n and per operand shape.
 4. main_path_shapes
             every kernel against its plain version again, bit for bit, at
             each operand shape the headline verify gave it (stacked rows of
-            Fp2 products, K3 at n = m + 1 pairs and at n = 1).
+            Fp2 products, K3 at n = m + 1 pairs and at n = 1); then both K2
+            entries timed at the three shapes with the most launches in
+            that record (k2_shapes), with floor_ms.
 5. vectors  every verify / fast_aggregate_verify / batch_verify case under
             tests/vectors/general/phase0/bls/*/small must give its output.
 
@@ -36,11 +43,17 @@ not 0 and the last line is not printed. Without a card it exits 1 at once.
 
     python3 chip_smoke.py --kernels-only
 
-runs phases 1 and 2 alone and prints the kernel summary: the quick way to
-time two trees' kernels in one call on one card.
+runs phases 1 and 2 (and the wrapper phase) alone and prints the kernel
+summary: the quick way to time two trees' kernels in one call on one card.
+To time a kernel redesign against its parent, unpack the parent with
+``git archive`` into a gitignored directory, copy this script beside it,
+and run both trees' ``--kernels-only`` in one call, in turns (parent,
+change, change, parent). A tree whose K2 library has no empty entry point
+gets floor_ms null.
 """
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -51,6 +64,11 @@ import torch
 ROOT = Path(__file__).resolve().parent
 SEED = 20261017
 NS = (1, 65, 64, 4096, 16384)
+# K2's operand shapes with the most launches per headline verify (the
+# verify phase's launches_by_shape: fp2_sqr 760 at (2, 2, 12, 64); fp2_mul
+# 254 at (4, 2, 12, 64), 201 at (2, 2, 12, 64), 130 at (4, 2, 12, 4096)),
+# and its largest, (6, 2, 12, 4096) (66 launches).
+K2_SHAPES = ((2, 2, 12, 64), (4, 2, 12, 64), (4, 2, 12, 4096), (6, 2, 12, 4096))
 HEADLINE = dict(n_sets=4096, keys=4, distinct=64)
 
 # H100 SXM peaks (NVIDIA H100 data sheet / Hopper white paper, 700 W):
@@ -177,6 +195,55 @@ def _compare(name, shapes, gen):
     return xs, int(diff.abs().max())
 
 
+def _floor(shape):
+    """Graph-replay and call ms of an empty kernel on K2's grid for an
+    operand shape (..., 2, 12, n); None where the library has none."""
+    import ctypes
+
+    from lighthouse_tpu_torch.ops import _build
+
+    fn = getattr(_build.library("fp2_mul"), "lh_fp2_empty", None)
+    if fn is None:
+        return None, None
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    rows = math.prod(shape[:-3]) if len(shape) > 3 else 1
+
+    def call():
+        if fn(None, rows, shape[-1], torch.cuda.current_stream().cuda_stream) != 0:
+            raise RuntimeError("empty kernel launch failed")
+
+    return graph_ms(call, 200), cuda_ms(call, 200)
+
+
+def _timed(name, shapes, gen):
+    """Kernel `name` at one operand shape: compared with its plain version
+    (tolerance 0), then timed, with its bound from WORK."""
+    from lighthouse_tpu_torch.ops import fused
+
+    xs, err = _compare(name, shapes, gen)
+    elems = math.prod(shapes[0]) // math.prod(fused._TAIL[fused._KERNELS[name][2][0]])
+    reps = 200 if elems < 16384 else 50
+    call_ms = cuda_ms(lambda: fused.WRAPPERS[name](*xs), reps)
+    ms = graph_ms(lambda: fused.WRAPPERS[name](*xs), reps)
+    plain_ms = cuda_ms(lambda: fused.PLAIN[name](*xs), 3)
+    mads, nbytes = WORK[name]
+    t_ops, t_bytes = elems * mads / INT32_MAD_PER_S * 1e3, elems * nbytes / HBM_BYTES_PER_S * 1e3
+    return {"mismatches": 0, "max_abs_err": err, "ms": ms, "call_ms": call_ms,
+            "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def _time_k2_shapes(name, shapes, gen):
+    """K2 entry `name` at each Fp2 operand shape, with floor_ms."""
+    per = {}
+    for shape in shapes:
+        row = _timed(name, [tuple(shape)] * (2 if name == "fp2_mul" else 1), gen)
+        row["floor_ms"], row["floor_call_ms"] = _floor(tuple(shape))
+        per[str(tuple(shape))] = row
+    return per
+
+
 def phase_kernels():
     from lighthouse_tpu_torch.ops import fused
 
@@ -184,23 +251,64 @@ def phase_kernels():
     gen.manual_seed(SEED)
     results = {}
     for name, (_, _, kinds) in fused._KERNELS.items():
-        per_n = {}
-        for n in NS:
-            xs, err = _compare(name, [fused._TAIL[k] + (n,) for k in kinds], gen)
-            reps = 200 if n < 16384 else 50
-            call_ms = cuda_ms(lambda: fused.WRAPPERS[name](*xs), reps)
-            ms = graph_ms(lambda: fused.WRAPPERS[name](*xs), reps)
-            plain_ms = cuda_ms(lambda: fused.PLAIN[name](*xs), 3)
-            mads, nbytes = WORK[name]
-            t_ops, t_bytes = n * mads / INT32_MAD_PER_S * 1e3, n * nbytes / HBM_BYTES_PER_S * 1e3
-            per_n[n] = {"mismatches": 0, "max_abs_err": err, "ms": ms, "call_ms": call_ms,
-                        "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
-                        "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+        per_n = {n: _timed(name, [fused._TAIL[k] + (n,) for k in kinds], gen) for n in NS}
+        if name.startswith("fp2"):
+            for n, row in per_n.items():
+                row["floor_ms"], row["floor_call_ms"] = _floor((2, 12, n))
         results[name] = per_n
         emit({"phase": "kernels", "kernel": name, "tolerance": 0, "by_n": per_n,
               "library_ms": None})
+    by_shape = {name: _time_k2_shapes(name, K2_SHAPES, gen) for name in ("fp2_mul", "fp2_sqr")}
+    for name, per in by_shape.items():
+        emit({"phase": "kernels", "kernel": name, "tolerance": 0, "by_shape": per})
     fused.reset_launches()      # the comparison launches do not count
-    return results
+    return results, by_shape
+
+
+def _host_us(fn, reps: int = 5000) -> float:
+    """Mean host microseconds of one call of fn over `reps` calls."""
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def phase_wrapper():
+    """The host's cost of each part of one K2 wrapper call, at (2, 12, 64),
+    and of the whole call."""
+    from lighthouse_tpu_torch.ops import _build, fused
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 2)
+    a, b = (_rand_fp((2, 12, 64), gen) for _ in range(2))
+    out = torch.empty_like(a)
+    fn = getattr(_build.library("fp2_mul"), "lh_fp2_mul")
+    stream = torch.cuda.current_stream().cuda_stream
+    ptrs = (out.data_ptr(), a.data_ptr(), b.data_ptr())
+
+    def device_context():
+        with torch.cuda.device(a.device):
+            pass
+
+    parts = {
+        "check": lambda: fused._check("fp2_mul", (a, b)),
+        "empty_like": lambda: torch.empty_like(a),
+        "library_getattr": lambda: getattr(_build.library("fp2_mul"), "lh_fp2_mul"),
+        "device_context": device_context,
+        "current_device": torch.cuda.current_device,
+        "current_stream": lambda: torch.cuda.current_stream(a.device).cuda_stream,
+        "current_stream_default": lambda: torch.cuda.current_stream().cuda_stream,
+        "raw_stream": lambda: torch._C._cuda_getCurrentRawStream(a.device.index),
+        "data_ptrs": lambda: (out.data_ptr(), a.data_ptr(), b.data_ptr()),
+        "ctypes_launch": lambda: fn(*ptrs, 1, 64, stream),
+        "whole_call": lambda: fused.fp2_mul(a, b),
+    }
+    emit({"phase": "wrapper", "kernel": "fp2_mul", "shape": [2, 12, 64],
+          "host_us": {k: _host_us(f) for k, f in parts.items()}})
+    fused.reset_launches()
 
 
 def phase_main_path_shapes(shapes):
@@ -283,12 +391,15 @@ def phase_verify():
     # the main path gives each kernel (the timed run below goes unwatched).
     shapes = {name: set() for name in fused.launches}
     by_n = {name: {} for name in fused.launches}
+    by_shape = {name: {} for name in fused.launches}
     run = fused._run
 
     def watch(name, *xs):
         shapes[name].add(tuple(tuple(x.shape) for x in xs))
         n = xs[0].shape[-1]
         by_n[name][n] = by_n[name].get(n, 0) + 1
+        key = tuple(xs[0].shape)
+        by_shape[name][key] = by_shape[name].get(key, 0) + 1
         return run(name, *xs)
 
     fused._run = watch
@@ -336,12 +447,32 @@ def phase_verify():
                                           "first_run_s": warm_s, "sigs_per_s": n / wall_s,
                                           "launches": launches, "stages_s": stages_s,
                                           "launches_by_n": {k: dict(sorted(v.items()))
-                                                            for k, v in by_n.items()}},
+                                                            for k, v in by_n.items()},
+                                          "launches_by_shape": {
+                                              k: {str(sh): c for sh, c in sorted(
+                                                  v.items(), key=lambda kv: -kv[1])}
+                                              for k, v in by_shape.items()}},
           "poisoned": {"verified": bad, "wall_s": bad_s},
           "distinct_256": {"verified": ok256, "wall_s": d_s, "sigs_per_s": 256 / d_s},
           "find_invalid_32": {"culprits": culprits, "wall_s": find_s},
           "host_signing_s": sign_s + sign2_s})
-    return launches, shapes
+    return launches, shapes, by_shape
+
+
+def phase_k2_shapes(by_shape):
+    """Both K2 entries timed at the three operand shapes with the most
+    launches in the headline verify's record."""
+    from lighthouse_tpu_torch.ops import fused
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 3)
+    top = {name: sorted(by_shape[name], key=lambda sh: -by_shape[name][sh])[:3]
+           for name in ("fp2_mul", "fp2_sqr")}
+    for name in top:
+        per = _time_k2_shapes(name, top[name], gen)
+        emit({"phase": "k2_shapes", "kernel": name, "tolerance": 0,
+              "launches": {str(sh): by_shape[name][sh] for sh in top[name]}, "by_shape": per})
+    fused.reset_launches()
 
 
 def _vector_sets(api, kind, inp):
@@ -383,7 +514,7 @@ def phase_vectors():
     emit({"phase": "vectors", "passed": len(cases), "cases": cases})
 
 
-def _summary(kernels, launches, shape_errs):
+def _summary(kernels, k2_by_shape, launches, shape_errs):
     summary = []
     for name, per_n in kernels.items():
         lib = "fp12_op" if name.startswith("fp12") else ("fp2_mul" if name.startswith("fp2") else "fp_mul")
@@ -396,6 +527,11 @@ def _summary(kernels, launches, shape_errs):
                         "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
                         "library_ms": None, "n": max(NS),
                         "ms_by_n": {n: v["ms"] for n, v in per_n.items()}})
+        if name in k2_by_shape:
+            summary[-1].update(
+                floor_ms_by_n={n: v["floor_ms"] for n, v in per_n.items()},
+                ms_by_shape={sh: v["ms"] for sh, v in k2_by_shape[name].items()},
+                floor_ms_by_shape={sh: v["floor_ms"] for sh, v in k2_by_shape[name].items()})
     return summary
 
 
@@ -410,15 +546,17 @@ def main(argv) -> int:
 
     t0 = time.perf_counter()
     phase_env()
-    kernels = phase_kernels()
+    kernels, k2_by_shape = phase_kernels()
+    phase_wrapper()
     if argv:
         print(nvidia_smi("name,power.limit"), flush=True)
-        emit({"kernels": _summary(kernels, {}, {})})
+        emit({"kernels": _summary(kernels, k2_by_shape, {}, {})})
         return 0
-    launches, shapes = phase_verify()
+    launches, shapes, by_shape = phase_verify()
     shape_errs = phase_main_path_shapes(shapes)
+    phase_k2_shapes(by_shape)
     phase_vectors()
-    summary = _summary(kernels, launches, shape_errs)
+    summary = _summary(kernels, k2_by_shape, launches, shape_errs)
     emit({"phase": "done", "seconds": time.perf_counter() - t0})
     print(nvidia_smi("name,power.limit"), flush=True)
     emit({"kernels": summary})

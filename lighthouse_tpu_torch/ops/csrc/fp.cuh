@@ -73,33 +73,6 @@ __device__ __forceinline__ void mul_wide(const uint32_t* a, const uint32_t* b, u
   }
 }
 
-// t += x (mod 2^768; callers keep the sum below 2^768).
-__device__ __forceinline__ void add_wide(uint32_t* t, const uint32_t* x) {
-  uint64_t c = 0;
-#pragma unroll
-  for (int k = 0; k < NW; ++k) {
-    c += (uint64_t)t[k] + x[k];
-    t[k] = (uint32_t)c;
-    c >>= 32;
-  }
-}
-
-// t -= x (callers keep the difference non-negative).
-__device__ __forceinline__ void sub_wide(uint32_t* t, const uint32_t* x) {
-  uint64_t br = 0;
-#pragma unroll
-  for (int k = 0; k < NW; ++k) {
-    const uint64_t d = (uint64_t)t[k] - x[k] - br;
-    t[k] = (uint32_t)d;
-    br = d >> 63;
-  }
-}
-
-__device__ __forceinline__ void set_wide(uint32_t* t, const uint32_t* c) {
-#pragma unroll
-  for (int k = 0; k < NW; ++k) t[k] = c[k];
-}
-
 // x -= p when x >= p.
 __device__ __forceinline__ void cond_sub_p(uint32_t* x) {
   uint32_t d[NL];
@@ -139,29 +112,6 @@ __device__ __forceinline__ void redc(uint32_t* t, uint32_t* out) {
   for (int j = 0; j < NL; ++j) out[j] = t[NL + j];
 #pragma unroll
   for (int s = 0; s < NSUB; ++s) cond_sub_p(out);
-}
-
-// Accumulate one Fp2 product x * y, or xi * x * y with xi = 1 + u, into the
-// double-width accumulators (t0, t1) of an Fp2 output:
-//   x * y       = (x0 y0 - x1 y1) + (x0 y1 + x1 y0) u
-//   xi * x * y  = (x0 y0 - x1 y1 - x0 y1 - x1 y0) + (x0 y0 - x1 y1 + x0 y1 + x1 y0) u
-// Four Fp products either way; each is added to or subtracted from t0 and t1.
-__device__ __forceinline__ void fp2_acc(uint32_t* t0, uint32_t* t1, const uint32_t* x0,
-                                        const uint32_t* x1, const uint32_t* y0,
-                                        const uint32_t* y1, bool xi) {
-  uint32_t pr[NW];
-  mul_wide(x0, y0, pr);
-  add_wide(t0, pr);
-  if (xi) add_wide(t1, pr);
-  mul_wide(x1, y1, pr);
-  sub_wide(t0, pr);
-  if (xi) sub_wide(t1, pr);
-  mul_wide(x0, y1, pr);
-  if (xi) sub_wide(t0, pr);
-  add_wide(t1, pr);
-  mul_wide(x1, y0, pr);
-  if (xi) sub_wide(t0, pr);
-  add_wide(t1, pr);
 }
 
 __device__ __forceinline__ long long thread_index() {

@@ -23,17 +23,23 @@ int64 product of two 32-bit limbs wraps), with products in float64 (exact
 integers below 2^53) and carries in int64, and reduce exactly by a fold
 and a quotient estimate (below) where the kernels use Montgomery REDC; both
 return the canonical value, so they agree bit for bit. The plain versions
-take the kernels' signed sums term for term from the same tables, and
-those tables are checked against the kernels' accumulator bounds.
+take K3's signed sums term for term from the same tables, and those
+tables are checked against K3's accumulator bounds. K2's plain table
+(``_K2_TABLE``) sums the four schoolbook products, where the kernel sums
+three Karatsuba products (a square two); the outputs are canonical, so
+the two still agree bit for bit.
 
 What bounds the kernels on an H100 (3.35 TB/s, 16.75e12 32-bit
 multiply-adds/s, i.e. 5 multiply-adds per byte), counting the work each
 function needs (Karatsuba products, one reduction per output; chip_smoke.py
 WORK): K1 needs 288 multiply-adds per 144 bytes and K2 720 per 288, so both
 are bound by bytes; K3 mul needs 9,504 per 1,728 bytes, bound by integer
-multiply-adds. K1 and K2 give one element to one thread. K3 gives one
-element's Fp products to the lanes of a block: a warp per group of at most
-32 products, one product per lane, the groups and their signed column sums
+multiply-adds. K1 gives one element to one thread. K2 gives one element's
+Karatsuba products (three; a square two) to three warps of a block of 32
+elements, and its two reductions to two (replayed by
+tests/test_torch_k2_plan.py). K3 gives one element's Fp
+products to the lanes of a block: a warp per group of at most 32
+products, one product per lane, the groups and their signed column sums
 planned here (``k3_plan_words``) and handed to the kernel as a generated
 header; its square runs 78 distinct Fp products, its product the 144 of
 the schoolbook. None uses tensor cores.
@@ -245,7 +251,10 @@ def _fp2_terms(xi: bool, xa: int, yb: int, acc: int):
     return out
 
 
-# K2: offset p^2, at most 2 added and 1 subtracted product (csrc/fp2_mul.cu).
+# K2's plain version: offset p^2, at most 2 added and 1 subtracted product
+# of the schoolbook. The kernel (csrc/fp2_mul.cu) sums Karatsuba products
+# instead (T1 = (a0 + a1)(b0 + b1) - a0 b0 - a1 b1) with bounds of its own,
+# checked by tests/test_torch_k2_plan.py; both reduce to the canonical value.
 _K2_TABLE = _Table(_fp2_terms(False, 0, 0, 0), 2, 2, 1)
 
 
@@ -450,6 +459,18 @@ def _check(name, xs):
         lead = this
 
 
+def _launch(name, out, xs):
+    lib_name, entry, kinds = _KERNELS[name]
+    n = out.shape[-1]
+    rows = out.numel() // (n * math.prod(_TAIL[kinds[0]]))
+    # The current stream's cudaStream_t, read as torch's own kernel
+    # launchers read it: torch.cuda.current_stream() builds a Stream object
+    # and costs ten times as much (chip_smoke.py, wrapper phase).
+    stream = torch._C._cuda_getCurrentRawStream(out.device.index)
+    fn = getattr(_build.library(lib_name), entry)
+    return fn(out.data_ptr(), *(x.data_ptr() for x in xs), rows, n, stream)
+
+
 def _run(name, *xs):
     _check(name, xs)
     a = xs[0]
@@ -460,13 +481,11 @@ def _run(name, *xs):
     out = torch.empty_like(a)
     if a.numel() == 0:
         return out
-    lib_name, entry, kinds = _KERNELS[name]
-    n = a.shape[-1]
-    rows = a.numel() // (n * math.prod(_TAIL[kinds[0]]))
-    fn = getattr(_build.library(lib_name), entry)
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        rc = fn(out.data_ptr(), *(x.data_ptr() for x in xs), rows, n, stream)
+    if a.device.index == torch.cuda.current_device():
+        rc = _launch(name, out, xs)
+    else:
+        with torch.cuda.device(a.device):
+            rc = _launch(name, out, xs)
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed with cudaError_t {rc}")
     launches[name] += 1
