@@ -13,9 +13,10 @@ Phases, each printing one JSON line:
             chain and the Miller loop's m + 1 pairs), each with its time
             (one call replayed from a CUDA graph, and a back-to-back
             wrapper call with its dispatch), the plain version's time and
-            its bound. Both K2 entries are also timed at the main path's
-            heaviest operand shapes (K2_SHAPES), each beside floor_ms, an
-            empty kernel on K2's grid timed the same way.
+            its bound. Both K1 and both K2 entries are also timed at the
+            main path's heaviest operand shapes (K1_SHAPES, K2_SHAPES),
+            each beside floor_ms, an empty kernel on its library's grid
+            timed the same way (also at every n).
    wrapper  the host's cost of the parts of one K2 wrapper call (checks,
             output allocation, library lookup, device context, stream,
             the ctypes launch), each timed alone over many calls.
@@ -31,9 +32,9 @@ Phases, each printing one JSON line:
 4. main_path_shapes
             every kernel against its plain version again, bit for bit, at
             each operand shape the headline verify gave it (stacked rows of
-            Fp2 products, K3 at n = m + 1 pairs and at n = 1); then both K2
-            entries timed at the three shapes with the most launches in
-            that record (k2_shapes), with floor_ms.
+            Fp2 products, K3 at n = m + 1 pairs and at n = 1); then both K1
+            and both K2 entries timed at the three shapes with the most
+            launches in that record (k1_shapes, k2_shapes), with floor_ms.
 5. vectors  every verify / fast_aggregate_verify / batch_verify case under
             tests/vectors/general/phase0/bls/*/small must give its output.
 
@@ -48,8 +49,8 @@ summary: the quick way to time two trees' kernels in one call on one card.
 To time a kernel redesign against its parent, unpack the parent with
 ``git archive`` into a gitignored directory, copy this script beside it,
 and run both trees' ``--kernels-only`` in one call, in turns (parent,
-change, change, parent). A tree whose K2 library has no empty entry point
-gets floor_ms null.
+change, change, parent). A tree whose K1 or K2 library has no empty entry
+point gets floor_ms null there.
 """
 
 import json
@@ -69,6 +70,15 @@ NS = (1, 65, 64, 4096, 16384)
 # 254 at (4, 2, 12, 64), 201 at (2, 2, 12, 64), 130 at (4, 2, 12, 4096)),
 # and its largest, (6, 2, 12, 4096) (66 launches).
 K2_SHAPES = ((2, 2, 12, 64), (4, 2, 12, 64), (4, 2, 12, 4096), (6, 2, 12, 4096))
+# K1's operand shapes with the most launches per headline verify (the
+# verify phase's launches_by_shape: fp_mul 130 at (4, 12, 4096), 104 at
+# (12, 1), 68 at (3, 2, 12, 65), 66 at (6, 12, 4096); fp_sqr all 381 at
+# (12, 1)).
+K1_SHAPES = ((12, 1), (3, 2, 12, 65), (4, 12, 4096), (6, 12, 4096))
+# Libraries timed at main-path shapes beside an empty kernel on their grid:
+# library -> (empty entry point, shapes, phase tag).
+FLOORED = {"fp_mul": ("lh_fp_empty", K1_SHAPES, "k1"),
+           "fp2_mul": ("lh_fp2_empty", K2_SHAPES, "k2")}
 HEADLINE = dict(n_sets=4096, keys=4, distinct=64)
 
 # H100 SXM peaks (NVIDIA H100 data sheet / Hopper white paper, 700 W):
@@ -195,19 +205,21 @@ def _compare(name, shapes, gen):
     return xs, int(diff.abs().max())
 
 
-def _floor(shape):
-    """Graph-replay and call ms of an empty kernel on K2's grid for an
-    operand shape (..., 2, 12, n); None where the library has none."""
+def _floor(lib, shape):
+    """Graph-replay and call ms of an empty kernel on library `lib`'s grid
+    for an operand shape (..., 12, n) of its kernels; None where the
+    library has none."""
     import ctypes
 
-    from lighthouse_tpu_torch.ops import _build
+    from lighthouse_tpu_torch.ops import _build, fused
 
-    fn = getattr(_build.library("fp2_mul"), "lh_fp2_empty", None)
+    fn = getattr(_build.library(lib), FLOORED[lib][0], None)
     if fn is None:
         return None, None
     fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    rows = math.prod(shape[:-3]) if len(shape) > 3 else 1
+    kind = next(kinds[0] for name, kinds in _entries(lib))
+    rows = math.prod(shape[:-len(fused._TAIL[kind]) - 1])
 
     def call():
         if fn(None, rows, shape[-1], torch.cuda.current_stream().cuda_stream) != 0:
@@ -234,12 +246,23 @@ def _timed(name, shapes, gen):
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
-def _time_k2_shapes(name, shapes, gen):
-    """K2 entry `name` at each Fp2 operand shape, with floor_ms."""
+def _entries(lib):
+    """(kernel name, operand kinds) of each entry point of library `lib`."""
+    from lighthouse_tpu_torch.ops import fused
+
+    return [(name, kinds) for name, (owner, _, kinds) in fused._KERNELS.items() if owner == lib]
+
+
+def _time_shapes(name, shapes, gen):
+    """Kernel `name` (K1 or K2) at each operand shape, with its library's
+    floor_ms."""
+    from lighthouse_tpu_torch.ops import fused
+
+    lib, _, kinds = fused._KERNELS[name]
     per = {}
     for shape in shapes:
-        row = _timed(name, [tuple(shape)] * (2 if name == "fp2_mul" else 1), gen)
-        row["floor_ms"], row["floor_call_ms"] = _floor(tuple(shape))
+        row = _timed(name, [tuple(shape)] * len(kinds), gen)
+        row["floor_ms"], row["floor_call_ms"] = _floor(lib, tuple(shape))
         per[str(tuple(shape))] = row
     return per
 
@@ -250,15 +273,16 @@ def phase_kernels():
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     results = {}
-    for name, (_, _, kinds) in fused._KERNELS.items():
+    for name, (lib, _, kinds) in fused._KERNELS.items():
         per_n = {n: _timed(name, [fused._TAIL[k] + (n,) for k in kinds], gen) for n in NS}
-        if name.startswith("fp2"):
+        if lib in FLOORED:
             for n, row in per_n.items():
-                row["floor_ms"], row["floor_call_ms"] = _floor((2, 12, n))
+                row["floor_ms"], row["floor_call_ms"] = _floor(lib, fused._TAIL[kinds[0]] + (n,))
         results[name] = per_n
         emit({"phase": "kernels", "kernel": name, "tolerance": 0, "by_n": per_n,
               "library_ms": None})
-    by_shape = {name: _time_k2_shapes(name, K2_SHAPES, gen) for name in ("fp2_mul", "fp2_sqr")}
+    by_shape = {name: _time_shapes(name, FLOORED[lib][1], gen)
+                for lib in FLOORED for name, _ in _entries(lib)}
     for name, per in by_shape.items():
         emit({"phase": "kernels", "kernel": name, "tolerance": 0, "by_shape": per})
     fused.reset_launches()      # the comparison launches do not count
@@ -459,18 +483,19 @@ def phase_verify():
     return launches, shapes, by_shape
 
 
-def phase_k2_shapes(by_shape):
-    """Both K2 entries timed at the three operand shapes with the most
-    launches in the headline verify's record."""
+def phase_top_shapes(by_shape, lib):
+    """The entries of library `lib` (K1 or K2) timed at the three operand
+    shapes with the most launches in the headline verify's record (phase
+    k1_shapes or k2_shapes)."""
     from lighthouse_tpu_torch.ops import fused
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED + 3)
     top = {name: sorted(by_shape[name], key=lambda sh: -by_shape[name][sh])[:3]
-           for name in ("fp2_mul", "fp2_sqr")}
+           for name, _ in _entries(lib)}
     for name in top:
-        per = _time_k2_shapes(name, top[name], gen)
-        emit({"phase": "k2_shapes", "kernel": name, "tolerance": 0,
+        per = _time_shapes(name, top[name], gen)
+        emit({"phase": f"{FLOORED[lib][2]}_shapes", "kernel": name, "tolerance": 0,
               "launches": {str(sh): by_shape[name][sh] for sh in top[name]}, "by_shape": per})
     fused.reset_launches()
 
@@ -514,7 +539,7 @@ def phase_vectors():
     emit({"phase": "vectors", "passed": len(cases), "cases": cases})
 
 
-def _summary(kernels, k2_by_shape, launches, shape_errs):
+def _summary(kernels, by_shape, launches, shape_errs):
     summary = []
     for name, per_n in kernels.items():
         lib = "fp12_op" if name.startswith("fp12") else ("fp2_mul" if name.startswith("fp2") else "fp_mul")
@@ -527,11 +552,11 @@ def _summary(kernels, k2_by_shape, launches, shape_errs):
                         "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
                         "library_ms": None, "n": max(NS),
                         "ms_by_n": {n: v["ms"] for n, v in per_n.items()}})
-        if name in k2_by_shape:
+        if name in by_shape:
             summary[-1].update(
                 floor_ms_by_n={n: v["floor_ms"] for n, v in per_n.items()},
-                ms_by_shape={sh: v["ms"] for sh, v in k2_by_shape[name].items()},
-                floor_ms_by_shape={sh: v["floor_ms"] for sh, v in k2_by_shape[name].items()})
+                ms_by_shape={sh: v["ms"] for sh, v in by_shape[name].items()},
+                floor_ms_by_shape={sh: v["floor_ms"] for sh, v in by_shape[name].items()})
     return summary
 
 
@@ -546,17 +571,18 @@ def main(argv) -> int:
 
     t0 = time.perf_counter()
     phase_env()
-    kernels, k2_by_shape = phase_kernels()
+    kernels, kernel_by_shape = phase_kernels()
     phase_wrapper()
     if argv:
         print(nvidia_smi("name,power.limit"), flush=True)
-        emit({"kernels": _summary(kernels, k2_by_shape, {}, {})})
+        emit({"kernels": _summary(kernels, kernel_by_shape, {}, {})})
         return 0
     launches, shapes, by_shape = phase_verify()
     shape_errs = phase_main_path_shapes(shapes)
-    phase_k2_shapes(by_shape)
+    for lib in FLOORED:
+        phase_top_shapes(by_shape, lib)
     phase_vectors()
-    summary = _summary(kernels, k2_by_shape, launches, shape_errs)
+    summary = _summary(kernels, kernel_by_shape, launches, shape_errs)
     emit({"phase": "done", "seconds": time.perf_counter() - t0})
     print(nvidia_smi("name,power.limit"), flush=True)
     emit({"kernels": summary})

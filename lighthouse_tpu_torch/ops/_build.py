@@ -25,9 +25,10 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ["-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # C entry points per library: name -> number of tensor pointers (output first).
-# lh_fp2_empty launches an empty kernel on K2's grid: chip_smoke.py's floor.
+# lh_fp_empty and lh_fp2_empty launch an empty kernel on K1's and K2's grid:
+# chip_smoke.py's floor.
 ENTRY_POINTS = {
-    "fp_mul": {"lh_fp_mul": 3, "lh_fp_sqr": 2},
+    "fp_mul": {"lh_fp_mul": 3, "lh_fp_sqr": 2, "lh_fp_empty": 1},
     "fp2_mul": {"lh_fp2_mul": 3, "lh_fp2_sqr": 2, "lh_fp2_empty": 1},
     "fp12_op": {"lh_fp12_sqr": 2, "lh_fp12_mul": 3, "lh_fp12_line": 3},
 }

@@ -114,8 +114,4 @@ __device__ __forceinline__ void redc(uint32_t* t, uint32_t* out) {
   for (int s = 0; s < NSUB; ++s) cond_sub_p(out);
 }
 
-__device__ __forceinline__ long long thread_index() {
-  return (long long)blockIdx.x * blockDim.x + threadIdx.x;
-}
-
 }  // namespace lh

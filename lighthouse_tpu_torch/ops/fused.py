@@ -34,7 +34,9 @@ multiply-adds/s, i.e. 5 multiply-adds per byte), counting the work each
 function needs (Karatsuba products, one reduction per output; chip_smoke.py
 WORK): K1 needs 288 multiply-adds per 144 bytes and K2 720 per 288, so both
 are bound by bytes; K3 mul needs 9,504 per 1,728 bytes, bound by integer
-multiply-adds. K1 gives one element to one thread. K2 gives one element's
+multiply-adds. K1 gives one element to one thread, 32 elements to a block;
+its square runs the 78 distinct products (replayed by
+tests/test_torch_k1_plan.py). K2 gives one element's
 Karatsuba products (three; a square two) to three warps of a block of 32
 elements, and its two reductions to two (replayed by
 tests/test_torch_k2_plan.py). K3 gives one element's Fp
