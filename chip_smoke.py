@@ -37,8 +37,28 @@ Phases, each printing one JSON line:
             launches in that record (k1_shapes, k2_shapes), with floor_ms.
 5. vectors  every verify / fast_aggregate_verify / batch_verify case under
             tests/vectors/general/phase0/bls/*/small must give its output.
+6. kzg      the second path, Deneb's verify_blob_kzg_proof_batch
+            (crypto/kzg.py, ops/kzg.py): a by_root batch of 6 blobs and a
+            by_range batch of 192 (KZG_BATCHES), 4096 random field
+            elements each from SEED, committed and proven from a known tau
+            (C = [p(tau)]G1, W = [(p(tau) - y) / (tau - z)]G1), must verify
+            True: a watched first run records each kernel's operand shapes,
+            the counts are reset just before the warm run and read just
+            after it (KZG_REQUIRED must be launched), and one more run is
+            split at its stages (host, staging, stage A, stage B with the
+            sums, pairing). Then by_root with two proofs swapped False,
+            with one field element changed False, with every blob zero (so
+            every commitment and proof at infinity) True, and the three
+            Deneb vectors under tests/vectors/general/deneb/kzg/
+            verify_blob_kzg_proof_batch/small with the production setup at
+            their outputs.
+   kzg_shapes
+            every kernel the KZG runs launched against its plain version,
+            bit for bit, at each operand shape they gave it (K3 at n = 2
+            and 1, K1 at 2 n_bucket lanes).
 
-Then the card's name and power limit, the kernel summary line, and last
+Then the card's name and power limit, the kernel summary line (with
+launches_kzg, each kernel's launches in each warm KZG run), and last
 {"ok": true, "device": {...}}. Any failure raises: the exit code is then
 not 0 and the last line is not printed. Without a card it exits 1 at once.
 
@@ -60,6 +80,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
@@ -80,6 +101,15 @@ K1_SHAPES = ((12, 1), (3, 2, 12, 65), (4, 12, 4096), (6, 12, 4096))
 FLOORED = {"fp_mul": ("lh_fp_empty", K1_SHAPES, "k1"),
            "fp2_mul": ("lh_fp2_empty", K2_SHAPES, "k2")}
 HEADLINE = dict(n_sets=4096, keys=4, distinct=64)
+# KZG batches, one RPC response each: BlobsByRoot for one block
+# (MAX_BLOBS_PER_BLOCK = 6) and BlobsByRange for one epoch of full blocks
+# (32 slots x 6), as range sync asks for it (network/sync.py
+# EPOCHS_PER_BATCH = 1). A blob is 4096 field elements.
+KZG_BATCHES = {"by_root": 6, "by_range": 192}
+KZG_ELEMENTS = 4096
+# Kernels the KZG path cannot run without: the G1 ladders' Fp products, the
+# Miller loop's and the final exponentiation's Fp2 and Fp12 products.
+KZG_REQUIRED = ("fp_mul", "fp2_mul", "fp12_sqr", "fp12_mul", "fp12_line")
 
 # H100 SXM peaks (NVIDIA H100 data sheet / Hopper white paper, 700 W):
 # 3.35 TB/s of HBM3, and 33.5 TOPS of INT32 with a multiply-add counted
@@ -335,19 +365,24 @@ def phase_wrapper():
     fused.reset_launches()
 
 
-def phase_main_path_shapes(shapes):
-    """Every kernel against its plain version at each operand shape the
-    headline verify gave it (stacked leading rows included), tolerance 0."""
+def phase_main_path_shapes(shapes, phase="main_path_shapes", required=None):
+    """Every kernel against its plain version at each operand shape a path
+    gave it (stacked leading rows included), tolerance 0. Each kernel in
+    `required` (default: all) must have a recorded shape; the others are
+    held at theirs, if any."""
     from lighthouse_tpu_torch.ops import fused
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED + 1)
+    required = fused._KERNELS if required is None else required
     errs = {}
     for name in fused._KERNELS:
         if not shapes[name]:
-            raise AssertionError(f"no main-path shapes recorded for {name}")
+            if name in required:
+                raise AssertionError(f"no {phase} recorded for {name}")
+            continue
         errs[name] = max(_compare(name, list(sh), gen)[1] for sh in sorted(shapes[name]))
-        emit({"phase": "main_path_shapes", "kernel": name, "tolerance": 0, "mismatches": 0,
+        emit({"phase": phase, "kernel": name, "tolerance": 0, "mismatches": 0,
               "max_abs_err": errs[name], "shapes": sorted(shapes[name])})
     fused.reset_launches()
     return errs
@@ -365,10 +400,11 @@ def _sign_sets(api, count, keys, msg_of, key_base):
     return sets
 
 
-def _timed_verify(api, sets):
+def _timed_verify(verify, *args):
+    """verify(*args) -> (its verdict, wall seconds, synchronised)."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    ok = api.verify_signature_sets(sets)
+    ok = verify(*args)
     torch.cuda.synchronize()
     return ok, time.perf_counter() - t0
 
@@ -400,19 +436,12 @@ def _stage_seconds(sets, device):
     return {k: b - a for k, a, b in zip(names, marks, marks[1:])}
 
 
-def phase_verify():
-    from lighthouse_tpu_torch.crypto.bls import api
+def _watched(fn):
+    """fn() with every kernel call's operand shapes recorded -> (its result,
+    {kernel: set of operand shapes}, {kernel: {operand n: calls}},
+    {kernel: {first operand's shape: calls}})."""
     from lighthouse_tpu_torch.ops import fused
 
-    t0 = time.perf_counter()
-    base = _sign_sets(api, HEADLINE["distinct"], HEADLINE["keys"],
-                      lambda i: i.to_bytes(4, "big") * 8, 100_000)
-    n = HEADLINE["n_sets"]
-    sets = (base * (n // len(base) + 1))[:n]
-    sign_s = time.perf_counter() - t0
-
-    # First run: allocator warm-up, and the record of every operand shape
-    # the main path gives each kernel (the timed run below goes unwatched).
     shapes = {name: set() for name in fused.launches}
     by_n = {name: {} for name in fused.launches}
     by_shape = {name: {} for name in fused.launches}
@@ -428,13 +457,31 @@ def phase_verify():
 
     fused._run = watch
     try:
-        ok, warm_s = _timed_verify(api, sets)
+        out = fn()
     finally:
         fused._run = run
+    return out, shapes, by_n, by_shape
+
+
+def phase_verify():
+    from lighthouse_tpu_torch.crypto.bls import api
+    from lighthouse_tpu_torch.ops import fused
+
+    t0 = time.perf_counter()
+    base = _sign_sets(api, HEADLINE["distinct"], HEADLINE["keys"],
+                      lambda i: i.to_bytes(4, "big") * 8, 100_000)
+    n = HEADLINE["n_sets"]
+    sets = (base * (n // len(base) + 1))[:n]
+    sign_s = time.perf_counter() - t0
+
+    # First run: allocator warm-up, and the record of every operand shape
+    # the main path gives each kernel (the timed run below goes unwatched).
+    (ok, warm_s), shapes, by_n, by_shape = _watched(
+        lambda: _timed_verify(api.verify_signature_sets, sets))
     if ok is not True:
         raise AssertionError("headline batch did not verify")
     fused.reset_launches()
-    ok, wall_s = _timed_verify(api, sets)
+    ok, wall_s = _timed_verify(api.verify_signature_sets, sets)
     launches = dict(fused.launches)
     if ok is not True:
         raise AssertionError("headline batch did not verify")
@@ -446,14 +493,14 @@ def phase_verify():
     # Poison set 69: same message as set 5 (69 % 64 == 5), set 6's keys.
     poisoned = list(sets)
     poisoned[69] = api.SignatureSet(sets[69].signature, sets[6].signing_keys, sets[69].message)
-    bad, bad_s = _timed_verify(api, poisoned)
+    bad, bad_s = _timed_verify(api.verify_signature_sets, poisoned)
     if bad is not False:
         raise AssertionError("poisoned batch verified")
 
     t1 = time.perf_counter()
     distinct = _sign_sets(api, 256, 1, lambda i: b"distinct" + i.to_bytes(24, "big"), 7_000)
     sign2_s = time.perf_counter() - t1
-    ok256, d_s = _timed_verify(api, distinct)
+    ok256, d_s = _timed_verify(api.verify_signature_sets, distinct)
     if ok256 is not True:
         raise AssertionError("256 distinct-message sets did not verify")
 
@@ -539,7 +586,166 @@ def phase_vectors():
     emit({"phase": "vectors", "passed": len(cases), "cases": cases})
 
 
-def _summary(kernels, by_shape, launches, shape_errs):
+def _kzg_verifier(tau: int):
+    """A Kzg of KZG_ELEMENTS elements from a known tau: [tau]G2 and the
+    bit-reversed domain. Its Lagrange points are left out (the batch verify
+    never reads them; the constructor takes n from their count)."""
+    from lighthouse_tpu_torch.crypto import kzg as kz
+    from lighthouse_tpu_torch.crypto.bls import curves as oc
+
+    n = KZG_ELEMENTS
+    w = kz._root_of_unity(n)
+    bits = n.bit_length() - 1
+    domain = [pow(w, kz._bit_reverse(i, bits), kz.R) for i in range(n)]
+    return kz.Kzg([None] * n, oc.g2_mul(oc.G2_GEN, tau), domain)
+
+
+def _kzg_batch(kzg, tau: int, rng, count: int):
+    """`count` blobs of random canonical field elements (each below 2^254),
+    with commitments C = [p(tau)]G1 and proofs W = [(p(tau) - y) / (tau - z)]G1,
+    z the blob's challenge and y = p(z): no MSM over a setup."""
+    from lighthouse_tpu_torch.crypto import kzg as kz
+    from lighthouse_tpu_torch.crypto.bls import curves as oc
+
+    blobs, commitments, proofs = [], [], []
+    for _ in range(count):
+        raw = rng.integers(0, 256, size=(KZG_ELEMENTS, 32), dtype=np.uint8)
+        raw[:, 0] &= 0x3F
+        blob = raw.tobytes()
+        evals = kzg.blob_to_field_elements(blob)
+        p_tau = kzg.evaluate_polynomial(evals, tau)
+        c = oc.g1_mul(oc.G1_GEN, p_tau)
+        z = kzg._challenge(blob, c)
+        y = kzg.evaluate_polynomial(evals, z)
+        blobs.append(blob)
+        commitments.append(c)
+        proofs.append(oc.g1_mul(oc.G1_GEN, (p_tau - y) * pow(tau - z, -1, kz.R) % kz.R))
+    return blobs, commitments, proofs
+
+
+def _kzg_stage_seconds(kzg, blobs, commitments, proofs):
+    """One more verify of a batch, split at the stage boundaries (the host's
+    challenges, evaluations and r; staging; stage A; stage B with the sums;
+    the pairing), each ended by a synchronise."""
+    from lighthouse_tpu_torch.ops import kzg as okzg
+    from lighthouse_tpu_torch.ops import limbs as lb
+
+    marks = [time.perf_counter()]
+
+    def mark():
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    zs, ys, r = kzg.batch_inputs(blobs, commitments, proofs)
+    mark()
+    commit, proof, g2_tau, y_words, z_words, r_words = okzg.stage(
+        commitments, zs, ys, proofs, r, kzg.g2_tau, lb.default_device())
+    mark()
+    term = okzg._stage_a(commit, proof, y_words, z_words)
+    mark()
+    sums = okzg._stage_b(term, proof, r_words)
+    mark()
+    ok = bool(okzg._pairing_check(sums, g2_tau).item())
+    mark()
+    if ok is not True:
+        raise AssertionError("KZG batch did not verify stage by stage")
+    names = ("host", "staging", "stage_a", "stage_b", "pairing")
+    return {k: b - a for k, a, b in zip(names, marks, marks[1:])}
+
+
+def _kzg_vectors():
+    """The committed Deneb verify_blob_kzg_proof_batch vectors with the
+    production setup: {case: (got, want)}; an input that fails to
+    deserialize gives False, as the spec's harness expects."""
+    from lighthouse_tpu_torch.crypto import kzg as kz
+    from lighthouse_tpu_torch.crypto.bls import curves as oc
+
+    kzg = kz.Kzg.load_trusted_setup()
+    out = {}
+    base = ROOT / "tests" / "vectors" / "general" / "deneb" / "kzg"
+    for meta in sorted((base / "verify_blob_kzg_proof_batch" / "small").glob("*/meta.json")):
+        case = json.loads(meta.read_text())
+        blobs = [(meta.parent / f"blob_{i}.bin").read_bytes() for i in range(case["count"])]
+        try:
+            cs = [oc.g1_from_compressed(bytes.fromhex(h[2:]))
+                  for h in case["input"]["commitments"]]
+            ps = [oc.g1_from_compressed(bytes.fromhex(h[2:])) for h in case["input"]["proofs"]]
+            got = kzg.verify_blob_kzg_proof_batch(blobs, cs, ps)
+        except (ValueError, kz.KzgError):
+            got = False
+        out[meta.parent.name] = (got, case["output"])
+    return out
+
+
+def phase_kzg():
+    """Deneb's verify_blob_kzg_proof_batch on the card (module docstring,
+    phase 6) -> ({batch: launches}, the operand shapes its warm-up runs
+    gave each kernel)."""
+    from lighthouse_tpu_torch.crypto.bls.constants import R
+    from lighthouse_tpu_torch.ops import fused
+
+    rng = np.random.default_rng(SEED)
+    tau = int.from_bytes(rng.bytes(32), "big") % R
+    kzg = _kzg_verifier(tau)
+    t0 = time.perf_counter()
+    batches = {name: _kzg_batch(kzg, tau, rng, count) for name, count in KZG_BATCHES.items()}
+    make_s = time.perf_counter() - t0
+
+    shapes = {name: set() for name in fused.launches}
+    launches, runs = {}, {}
+    for name, batch in batches.items():
+        (ok_first, first_s), rec, by_n, by_shape = _watched(
+            lambda: _timed_verify(kzg.verify_blob_kzg_proof_batch, *batch))
+        for k, v in rec.items():
+            shapes[k] |= v
+        fused.reset_launches()
+        ok, wall_s = _timed_verify(kzg.verify_blob_kzg_proof_batch, *batch)
+        launches[name] = dict(fused.launches)
+        if ok_first is not True or ok is not True:
+            raise AssertionError(f"KZG batch {name} did not verify")
+        missing = [k for k in KZG_REQUIRED if launches[name][k] <= 0]
+        if missing:
+            raise AssertionError(f"the KZG path ({name}) launched no {missing}")
+        runs[name] = {"blobs": len(batch[0]), "verified": ok, "wall_s": wall_s,
+                      "first_run_s": first_s, "stages_s": _kzg_stage_seconds(kzg, *batch),
+                      "launches": launches[name],
+                      "launches_by_n": {k: dict(sorted(v.items())) for k, v in by_n.items()},
+                      "launches_by_shape": {
+                          k: {str(sh): c for sh, c in sorted(v.items(), key=lambda kv: -kv[1])}
+                          for k, v in by_shape.items()}}
+
+    blobs, commitments, proofs = batches["by_root"]
+    tampered = bytearray(blobs[1])
+    tampered[7 * 32 + 31] ^= 1                  # element 7 of blob 1, still canonical
+    zero = bytes(32 * KZG_ELEMENTS)
+    n = len(blobs)
+    cases = {
+        "swapped": ((blobs, commitments, [proofs[1], proofs[0]] + proofs[2:]), False),
+        "tampered": (([blobs[0], bytes(tampered)] + blobs[2:], commitments, proofs), False),
+        "all_zero": (([zero] * n, [None] * n, [None] * n), True),
+    }
+    verdicts = {}
+    for case, (args, want) in cases.items():
+        got, wall_s = _timed_verify(kzg.verify_blob_kzg_proof_batch, *args)
+        if got is not want:
+            raise AssertionError(f"KZG {case}: got {got}, want {want}")
+        verdicts[case] = {"verified": got, "wall_s": wall_s}
+    t1 = time.perf_counter()
+    vectors = _kzg_vectors()
+    vectors_s = time.perf_counter() - t1
+    for case, (got, want) in vectors.items():
+        if got is not want:
+            raise AssertionError(f"KZG vector {case}: got {got}, want {want}")
+    if sorted(vectors) != ["empty", "swapped_proofs", "valid_pair"]:
+        raise AssertionError(f"KZG vectors found: {sorted(vectors)}")
+    emit({"phase": "kzg", **runs, **verdicts, "host_batch_making_s": make_s,
+          "vectors": {case: got for case, (got, _) in vectors.items()},
+          "vectors_s": vectors_s})
+    fused.reset_launches()
+    return launches, shapes
+
+
+def _summary(kernels, by_shape, launches, shape_errs, launches_kzg):
     summary = []
     for name, per_n in kernels.items():
         lib = "fp12_op" if name.startswith("fp12") else ("fp2_mul" if name.startswith("fp2") else "fp_mul")
@@ -551,7 +757,8 @@ def _summary(kernels, by_shape, launches, shape_errs):
                         "ms": top["ms"], "plain_ms": top["plain_ms"],
                         "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
                         "library_ms": None, "n": max(NS),
-                        "ms_by_n": {n: v["ms"] for n, v in per_n.items()}})
+                        "ms_by_n": {n: v["ms"] for n, v in per_n.items()},
+                        "launches_kzg": {b: v[name] for b, v in launches_kzg.items()}})
         if name in by_shape:
             summary[-1].update(
                 floor_ms_by_n={n: v["floor_ms"] for n, v in per_n.items()},
@@ -575,14 +782,17 @@ def main(argv) -> int:
     phase_wrapper()
     if argv:
         print(nvidia_smi("name,power.limit"), flush=True)
-        emit({"kernels": _summary(kernels, kernel_by_shape, {}, {})})
+        emit({"kernels": _summary(kernels, kernel_by_shape, {}, {}, {})})
         return 0
     launches, shapes, by_shape = phase_verify()
     shape_errs = phase_main_path_shapes(shapes)
     for lib in FLOORED:
         phase_top_shapes(by_shape, lib)
     phase_vectors()
-    summary = _summary(kernels, kernel_by_shape, launches, shape_errs)
+    launches_kzg, kzg_shapes = phase_kzg()
+    kzg_errs = phase_main_path_shapes(kzg_shapes, "kzg_shapes", KZG_REQUIRED)
+    errs = {k: max(shape_errs[k], kzg_errs.get(k, 0)) for k in shape_errs}
+    summary = _summary(kernels, kernel_by_shape, launches, errs, launches_kzg)
     emit({"phase": "done", "seconds": time.perf_counter() - t0})
     print(nvidia_smi("name,power.limit"), flush=True)
     emit({"kernels": summary})

@@ -7,7 +7,8 @@ loose-canonical); the port stores 12 32-bit Montgomery limbs, canonical.
 integers mod p, and ``to_ints`` takes the port's tensors back to integers
 mod p, the common ground of every comparison. Signature sets cross as wire
 bytes: 48-byte compressed G1 keys, 96-byte compressed G2 signatures and the
-32-byte message. Nothing on the port's main path uses this module.
+32-byte message. A KZG setup crosses by value, as oracle points and
+integers. Nothing on the port's main path uses this module.
 """
 
 import numpy as np
@@ -15,6 +16,7 @@ import torch
 
 from .crypto.bls import api
 from .crypto.bls.constants import P
+from .crypto.kzg import Kzg
 from .ops import limbs as lb
 
 JAX_DIGITS = 48
@@ -61,6 +63,18 @@ def from_jax_signature_set(s) -> api.SignatureSet:
     sig = api.Signature(point=sig.point, subgroup_checked=s.signature.subgroup_checked)
     keys = [api.PublicKey.from_bytes(pk.to_bytes()) for pk in s.signing_keys]
     return api.SignatureSet(signature=sig, signing_keys=keys, message=bytes(s.message))
+
+
+def from_jax_kzg(kzg) -> Kzg:
+    """A JAX-package Kzg -> the port's: its Lagrange G1 points, [tau]G2 and
+    bit-reversed domain, copied as Python integers."""
+    def g1(pt):
+        return None if pt is None else (int(pt[0]), int(pt[1]))
+
+    (x0, x1), (y0, y1) = kzg.g2_tau
+    return Kzg([g1(pt) for pt in kzg.g1_lagrange],
+               ((int(x0), int(x1)), (int(y0), int(y1))),
+               [int(w) for w in kzg.domain])
 
 
 def fp12_to_tuples(t: torch.Tensor) -> list:

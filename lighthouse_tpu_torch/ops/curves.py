@@ -144,7 +144,17 @@ class _Group:
 
     def mul_var_scalar(self, p, k, nbits: int = 64):
         """[k_i]P_i with per-element 64-bit scalars k (int64 bit patterns,
-        (..., n)): a 2-bit fixed window, as curves._Group.mul_var_scalar."""
+        (..., n)): a 2-bit fixed window, as curves._Group.mul_var_scalar;
+        the one-word case of mul_var_scalar_wide."""
+        return self.mul_var_scalar_wide(p, k.unsqueeze(0), nbits)
+
+    def mul_var_scalar_wide(self, p, k_words, nbits: int = 256):
+        """[k_i]P_i with per-element multi-word scalars (KZG's span the
+        255-bit Fr), as curves._Group.mul_var_scalar_wide: a 2-bit fixed
+        window over k_words (words, ..., n), little-endian 64-bit words as
+        int64 bit patterns. A digit never straddles a word, and
+        (word >> s) & 3 is exact on int64 for every even s <= 62 (the mask
+        drops the sign's copies)."""
         if nbits % 2:
             raise ValueError("nbits must be even")
         p2 = self.double(p)
@@ -153,7 +163,7 @@ class _Group:
         acc = inf
         for pos in range(nbits - 2, -1, -2):
             acc = self.double(self.double(acc))
-            digit = (k >> pos) & 3
+            digit = (k_words[pos // 64] >> (pos % 64)) & 3
             entry = self.select(digit == 1, p, self.select(
                 digit == 2, p2, self.select(digit == 3, p3, inf)))
             acc = self.add(acc, entry)
