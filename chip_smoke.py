@@ -7,19 +7,25 @@ Phases, each printing one JSON line:
 1. env      the card, the toolchain, and the build of every CUDA kernel
             (one nvcc per source, started together).
 2. kernels  every kernel variant against its plain PyTorch version on the
-            card, bit for bit, at n = 1, 65, 64, 4096 and 16384 elements
-            from a seed (edge values p - 1 and 0 included; n = 1 and 65
-            are where the main path runs K3: the final exponentiation's
-            chain and the Miller loop's m + 1 pairs), each with its time
-            (one call replayed from a CUDA graph, and a back-to-back
-            wrapper call with its dispatch), the plain version's time and
-            its bound. Both K1 and both K2 entries are also timed at the
-            main path's heaviest operand shapes (K1_SHAPES, K2_SHAPES),
-            each beside floor_ms, an empty kernel on its library's grid
-            timed the same way (also at every n).
+            card, bit for bit, at n = 1, 2, 65, 64, 4096 and 16384 elements
+            from a seed (edge values p - 1 and 0 included; n = 1, 2 and 65
+            are where the paths run K3: the final exponentiation's chain,
+            KZG's two pairs and the Miller loop's m + 1 pairs), each with
+            its time (one call replayed from a CUDA graph, and a
+            back-to-back wrapper call with its dispatch), the plain
+            version's time and its bound. K4's operands carry the edge
+            pairs of _k4_edge_pairs() in their first columns, and K4 is held
+            at every edge pair at once at (12, m) and (m, 12, 1), mul_small
+            at each k of K4_EDGE_KS (k_edges). K1, K2 and K4 are also timed
+            at the paths' heavy operand shapes (K1_SHAPES with KZG's ladder
+            shapes, K2_SHAPES, K4_SHAPES), each beside floor_ms, an empty
+            kernel on its library's grid timed the same way (also at every
+            n).
    wrapper  the host's cost of the parts of one K2 wrapper call (checks,
             output allocation, library lookup, device context, stream,
-            the ctypes launch), each timed alone over many calls.
+            the ctypes launch) and of one K4 call (checks, launch
+            arguments, function lookup, device, stream, the ctypes launch),
+            each timed alone over many calls.
 3. verify   the main path, batch signature-set verification: 4096 sets x 4
             keys over 64 distinct messages must verify True (once more
             split into its stages for their wall times), the same batch
@@ -28,13 +34,16 @@ Phases, each printing one JSON line:
             must name the one culprit among 32 sets. Launch counts are reset
             just before the headline batch and read just after it; the
             warm-up run before it records each kernel's operand shapes and
-            its launches per operand n and per operand shape.
+            its launches per operand n and per operand shape (K4: and per
+            k of mul_small).
 4. main_path_shapes
             every kernel against its plain version again, bit for bit, at
             each operand shape the headline verify gave it (stacked rows of
-            Fp2 products, K3 at n = m + 1 pairs and at n = 1); then both K1
-            and both K2 entries timed at the three shapes with the most
-            launches in that record (k1_shapes, k2_shapes), with floor_ms.
+            Fp2 products, K3 at n = m + 1 pairs and at n = 1; K4 at each
+            operand layout, strides, broadcasts and k included); then the
+            K1, K2 and K4 entries timed at the three shapes with the most
+            launches in that record (k1_shapes, k2_shapes, k4_shapes), with
+            floor_ms.
 5. vectors  every verify / fast_aggregate_verify / batch_verify case under
             tests/vectors/general/phase0/bls/*/small must give its output.
 6. kzg      the second path, Deneb's verify_blob_kzg_proof_batch
@@ -56,6 +65,16 @@ Phases, each printing one JSON line:
             every kernel the KZG runs launched against its plain version,
             bit for bit, at each operand shape they gave it (K3 at n = 2
             and 1, K1 at 2 n_bucket lanes).
+7. profile  torch.profiler over one call of each unit (fp_add, fp_sub,
+            fp_neg and fp_mul_small on equal shapes, fp_add broadcast and
+            strided: one CUDA kernel each, or the phase fails; G1/G2 add
+            and double, the Miller doubling and addition steps), over each
+            device stage of the headline and by_root verifies (a stage's
+            kernels are the nodes a CUDA graph of it would hold), then over
+            one warm eager headline verify and one warm by_root KZG verify:
+            CUDA kernels, the port's among them (which must equal the
+            wrappers' launches), device busy ms, the device's idle share of
+            the wall, the ten kernels launched most often.
 
 Then the card's name and power limit, the kernel summary line (with
 launches_kzg, each kernel's launches in each warm KZG run), and last
@@ -69,12 +88,14 @@ summary: the quick way to time two trees' kernels in one call on one card.
 To time a kernel redesign against its parent, unpack the parent with
 ``git archive`` into a gitignored directory, copy this script beside it,
 and run both trees' ``--kernels-only`` in one call, in turns (parent,
-change, change, parent). A tree whose K1 or K2 library has no empty entry
-point gets floor_ms null there.
+change, change, parent). A tree whose K1, K2 or K4 library has no empty
+entry point gets floor_ms null there.
 """
 
+import collections
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -85,7 +106,10 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 SEED = 20261017
-NS = (1, 65, 64, 4096, 16384)
+# Where the operands are made: the card. A rehearsal of the script's logic
+# on a CPU sets "cpu" (the kernels then take their plain versions).
+DEVICE = "cuda"
+NS = (1, 2, 65, 64, 4096, 16384)
 # K2's operand shapes with the most launches per headline verify (the
 # verify phase's launches_by_shape: fp2_sqr 760 at (2, 2, 12, 64); fp2_mul
 # 254 at (4, 2, 12, 64), 201 at (2, 2, 12, 64), 130 at (4, 2, 12, 4096)),
@@ -95,11 +119,19 @@ K2_SHAPES = ((2, 2, 12, 64), (4, 2, 12, 64), (4, 2, 12, 4096), (6, 2, 12, 4096))
 # verify phase's launches_by_shape: fp_mul 130 at (4, 12, 4096), 104 at
 # (12, 1), 68 at (3, 2, 12, 65), 66 at (6, 12, 4096); fp_sqr all 381 at
 # (12, 1)).
-K1_SHAPES = ((12, 1), (3, 2, 12, 65), (4, 12, 4096), (6, 12, 4096))
+# KZG's ladders run it at (4, 12, 2 n_bucket) and (6, 12, 2 n_bucket): 16
+# lanes for by_root (n_bucket 8), 512 for by_range (256).
+K1_SHAPES = ((12, 1), (3, 2, 12, 65), (4, 12, 4096), (6, 12, 4096),
+             (4, 12, 16), (4, 12, 512), (6, 12, 512))
+# K4's operand shapes among those with the most calls a verify (a CPU record
+# of the headline's code at n = 128: (2, 12, n), (12, n), (2, 12, m + 1)),
+# at the headline's n = 4096 and m = 64, and its largest, (6, 12, 4096).
+K4_SHAPES = ((2, 12, 64), (2, 12, 65), (12, 4096), (2, 12, 4096), (6, 12, 4096))
 # Libraries timed at main-path shapes beside an empty kernel on their grid:
 # library -> (empty entry point, shapes, phase tag).
 FLOORED = {"fp_mul": ("lh_fp_empty", K1_SHAPES, "k1"),
-           "fp2_mul": ("lh_fp2_empty", K2_SHAPES, "k2")}
+           "fp2_mul": ("lh_fp2_empty", K2_SHAPES, "k2"),
+           "fp_add": ("lh_fp_add_empty", K4_SHAPES, "k4")}
 HEADLINE = dict(n_sets=4096, keys=4, distinct=64)
 # KZG batches, one RPC response each: BlobsByRoot for one block
 # (MAX_BLOBS_PER_BLOCK = 6) and BlobsByRange for one epoch of full blocks
@@ -109,7 +141,13 @@ KZG_BATCHES = {"by_root": 6, "by_range": 192}
 KZG_ELEMENTS = 4096
 # Kernels the KZG path cannot run without: the G1 ladders' Fp products, the
 # Miller loop's and the final exponentiation's Fp2 and Fp12 products.
-KZG_REQUIRED = ("fp_mul", "fp2_mul", "fp12_sqr", "fp12_mul", "fp12_line")
+# Kernels the KZG path cannot run without: the G1 ladders' Fp products and
+# modular additions, the Miller loop's and the final exponentiation's Fp2
+# and Fp12 products.
+K4 = ("fp_add", "fp_sub", "fp_neg", "fp_mul_small")
+KZG_REQUIRED = ("fp_mul", "fp2_mul", "fp12_sqr", "fp12_mul", "fp12_line") + K4
+K4_EDGE_KS = (1, 3, 4, 8, 12, 65535)     # mul_small's k at the edge pairs
+K4_TIMED_K = 12     # the main path's largest k: three doublings and an add
 
 # H100 SXM peaks (NVIDIA H100 data sheet / Hopper white paper, 700 W):
 # 3.35 TB/s of HBM3, and 33.5 TOPS of INT32 with a multiply-add counted
@@ -134,6 +172,10 @@ WORK = {
     "fp12_sqr": (12 * 3 * FP_PROD + 12 * REDC, 2 * 576),
     "fp12_mul": (18 * 3 * FP_PROD + 12 * REDC, 3 * 576),
     "fp12_line": (14 * 3 * FP_PROD + 12 * REDC, 2 * 576 + 288),
+    # K4 needs no multiplies: add and sub read two Fp and write one, neg
+    # and mul_small read one.
+    "fp_add": (0, 3 * 48), "fp_sub": (0, 3 * 48), "fp_neg": (0, 2 * 48),
+    "fp_mul_small": (0, 2 * 48),
 }
 SOURCES = {
     "fp_mul": ("lighthouse_tpu_torch/ops/csrc/fp_mul.cu",
@@ -142,7 +184,15 @@ SOURCES = {
                 "lighthouse_tpu/ops/fused.py:279 _fwd_call + :319 _inv_call (with_offset)"),
     "fp12_op": ("lighthouse_tpu_torch/ops/csrc/fp12_op.cu",
                 "lighthouse_tpu/ops/fused.py:578 _k3_fp12_call"),
+    "fp_add": ("lighthouse_tpu_torch/ops/csrc/fp_add.cu",
+               "none (no pallas_call): lighthouse_tpu/ops/bm/limbs.py:343 add, :347 sub, "
+               ":351 neg, fused by XLA"),
 }
+
+
+def _sync() -> None:
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
 
 
 def emit(obj) -> None:
@@ -206,33 +256,104 @@ def phase_env():
           "ptxas": {name: _build.ptxas_report(name).splitlines() for name in _build.SOURCES}})
 
 
-def _rand_fp(shape, gen):
+def _rand_fp(shape, gen, strides=None):
     """Canonical Montgomery limbs (..., 12, n) on the card: random limbs with
-    the top limb below p's, and p - 1 and 0 in the first two elements."""
+    the top limb below p's, and p - 1 and 0 in the first two elements. With
+    `strides`, a view of those element strides (a stride of 0 broadcasts)."""
     from lighthouse_tpu_torch.ops import limbs as lb
 
-    x = torch.randint(0, 1 << 32, shape, generator=gen, device="cuda", dtype=torch.int64)
+    x = torch.randint(0, 1 << 32, shape, generator=gen, device=DEVICE, dtype=torch.int64)
     x[..., 11, :] %= 0x1A0111EA
-    edge = lb.ints_to_limbs([lb.P - 1, 0], "cuda").to(torch.int64) & 0xFFFFFFFF
+    edge = lb.ints_to_limbs([lb.P - 1, 0], DEVICE).to(torch.int64) & 0xFFFFFFFF
     k = min(2, shape[-1])
     x[..., :, :k] = edge[:, :k]
-    return torch.where(x > 0x7FFFFFFF, x - (1 << 32), x).to(torch.int32).contiguous()
+    x = torch.where(x > 0x7FFFFFFF, x - (1 << 32), x).to(torch.int32).contiguous()
+    if strides is None:
+        return x
+    compact = tuple(1 if st == 0 else sz for sz, st in zip(shape, strides))
+    view = torch.empty_strided(compact, tuple(strides), dtype=torch.int32, device=DEVICE)
+    view.copy_(x[tuple(slice(0, c) for c in compact)])
+    return view.expand(shape)
+
+
+def _k4_edge_pairs():
+    """K4's edge values as stored limbs (any value below p is a Montgomery
+    form): 0, 1, 2, p - 1, p - 2, 2^352 - 1 (limbs 0-10 all ones: + 1
+    carries through 11 limbs) and 2^352, every limb all ones but the top
+    one, and (p -+ 1) / 2. Every pair of them, then a + b = p and
+    a + b = p - 1; a = b (sub) is on the diagonal, and 0 - 1 borrows through
+    all 12 limbs."""
+    from lighthouse_tpu_torch.crypto.bls.constants import P
+
+    x = (1 << 352) - 1
+    y = ((P >> 352) - 1) << 352 | x
+    edges = (0, 1, 2, P - 1, P - 2, x, x + 1, y, y + 1, (P - 1) // 2, (P + 1) // 2)
+    return tuple((a, b) for a in edges for b in edges) + ((1, P - 1), (1, P - 2), (P - 1, 1))
+
+
+def _raw_limbs(vals):
+    """Stored integers below p -> (12, m) int32 limbs on the card."""
+    words = [[(v >> (32 * i)) & 0xFFFFFFFF for i in range(12)] for v in vals]
+    t = torch.tensor(words, dtype=torch.int64, device=DEVICE).T
+    return torch.where(t > 0x7FFFFFFF, t - (1 << 32), t).to(torch.int32).contiguous()
+
+
+def _operands(name, shapes, gen):
+    """Random operands of `name` at `shapes`; K4's first columns hold its
+    edge pairs (as many as fit)."""
+    xs = [_rand_fp(tuple(shape), gen) for shape in shapes]
+    if name in K4:
+        pairs = _k4_edge_pairs()[:shapes[0][-1]]
+        for x, vals in zip(xs, zip(*pairs)):
+            x[..., :len(vals)] = _raw_limbs(vals)
+    return xs
+
+
+def _call(name, xs, k=K4_TIMED_K, plain=False):
+    from lighthouse_tpu_torch.ops import fused
+
+    fn = (fused.PLAIN if plain else fused.WRAPPERS)[name]
+    return fn(*xs, k) if name == "fp_mul_small" else fn(*xs)
+
+
+def _check_equal(name, what, xs, k=K4_TIMED_K):
+    """Kernel `name` against its plain version on operands xs, tolerance 0
+    -> max |limb difference| (0)."""
+    got = _call(name, xs, k)
+    ref = _call(name, xs, k, plain=True)
+    _sync()
+    if got.shape != ref.shape:
+        raise AssertionError(f"{name} at {what}: shape {tuple(got.shape)}, plain {tuple(ref.shape)}")
+    diff = (got.to(torch.int64) & 0xFFFFFFFF) - (ref.to(torch.int64) & 0xFFFFFFFF)
+    mism = int(diff.ne(0).any(dim=-2).sum())
+    if mism:
+        raise AssertionError(f"{name} at {what}: {mism} elements differ from the plain version")
+    return int(diff.abs().max())
 
 
 def _compare(name, shapes, gen):
     """Kernel `name` against its plain version on random operands of the
     given shapes, tolerance 0 -> (operands, max |limb difference|)."""
+    xs = _operands(name, shapes, gen)
+    return xs, _check_equal(name, shapes, xs)
+
+
+def _k4_edges():
+    """Every K4 entry at every edge pair at once, at (12, m) and (m, 12, 1),
+    mul_small at each k of K4_EDGE_KS -> max |limb difference| (0)."""
     from lighthouse_tpu_torch.ops import fused
 
-    xs = [_rand_fp(shape, gen) for shape in shapes]
-    got = fused.WRAPPERS[name](*xs)
-    ref = fused.PLAIN[name](*xs)
-    torch.cuda.synchronize()
-    diff = (got.to(torch.int64) & 0xFFFFFFFF) - (ref.to(torch.int64) & 0xFFFFFFFF)
-    mism = int(diff.ne(0).any(dim=-2).sum())
-    if mism:
-        raise AssertionError(f"{name} at {shapes}: {mism} elements differ from the plain version")
-    return xs, int(diff.abs().max())
+    pairs = _k4_edge_pairs()
+    a, b = (_raw_limbs(v) for v in zip(*pairs))
+    col = [x.T.reshape(len(pairs), 12, 1).contiguous() for x in (a, b)]
+    err = 0
+    for name in K4:
+        arity = len(fused._KERNELS[name][2])
+        for operands in ((a, b), col):
+            xs = operands[:arity]
+            for k in (K4_EDGE_KS if name == "fp_mul_small" else (K4_TIMED_K,)):
+                err = max(err, _check_equal(name, f"edges {tuple(xs[0].shape)} k={k}", xs, k))
+    return err
 
 
 def _floor(lib, shape):
@@ -266,9 +387,9 @@ def _timed(name, shapes, gen):
     xs, err = _compare(name, shapes, gen)
     elems = math.prod(shapes[0]) // math.prod(fused._TAIL[fused._KERNELS[name][2][0]])
     reps = 200 if elems < 16384 else 50
-    call_ms = cuda_ms(lambda: fused.WRAPPERS[name](*xs), reps)
-    ms = graph_ms(lambda: fused.WRAPPERS[name](*xs), reps)
-    plain_ms = cuda_ms(lambda: fused.PLAIN[name](*xs), 3)
+    call_ms = cuda_ms(lambda: _call(name, xs), reps)
+    ms = graph_ms(lambda: _call(name, xs), reps)
+    plain_ms = cuda_ms(lambda: _call(name, xs, plain=True), 3)
     mads, nbytes = WORK[name]
     t_ops, t_bytes = elems * mads / INT32_MAD_PER_S * 1e3, elems * nbytes / HBM_BYTES_PER_S * 1e3
     return {"mismatches": 0, "max_abs_err": err, "ms": ms, "call_ms": call_ms,
@@ -284,8 +405,8 @@ def _entries(lib):
 
 
 def _time_shapes(name, shapes, gen):
-    """Kernel `name` (K1 or K2) at each operand shape, with its library's
-    floor_ms."""
+    """Kernel `name` (K1, K2 or K4) at each operand shape, with its
+    library's floor_ms."""
     from lighthouse_tpu_torch.ops import fused
 
     lib, _, kinds = fused._KERNELS[name]
@@ -300,7 +421,7 @@ def _time_shapes(name, shapes, gen):
 def phase_kernels():
     from lighthouse_tpu_torch.ops import fused
 
-    gen = torch.Generator(device="cuda")
+    gen = torch.Generator(device=DEVICE)
     gen.manual_seed(SEED)
     results = {}
     for name, (lib, _, kinds) in fused._KERNELS.items():
@@ -310,7 +431,11 @@ def phase_kernels():
                 row["floor_ms"], row["floor_call_ms"] = _floor(lib, fused._TAIL[kinds[0]] + (n,))
         results[name] = per_n
         emit({"phase": "kernels", "kernel": name, "tolerance": 0, "by_n": per_n,
-              "library_ms": None})
+              "library_ms": None, **({"k": K4_TIMED_K} if name == "fp_mul_small" else {})})
+    k4_err = _k4_edges()
+    emit({"phase": "kernels", "k4_edges": {"pairs": len(_k4_edge_pairs()), "ks": K4_EDGE_KS,
+                                          "tolerance": 0, "mismatches": 0,
+                                          "max_abs_err": k4_err}})
     by_shape = {name: _time_shapes(name, FLOORED[lib][1], gen)
                 for lib in FLOORED for name, _ in _entries(lib)}
     for name, per in by_shape.items():
@@ -332,7 +457,8 @@ def _host_us(fn, reps: int = 5000) -> float:
 
 def phase_wrapper():
     """The host's cost of each part of one K2 wrapper call, at (2, 12, 64),
-    and of the whole call."""
+    and of the whole call; then of one K4 fp_add call at (2, 12, 64), and
+    of whole K4 calls on strided and broadcast operands."""
     from lighthouse_tpu_torch.ops import _build, fused
 
     gen = torch.Generator(device="cuda")
@@ -362,17 +488,40 @@ def phase_wrapper():
     }
     emit({"phase": "wrapper", "kernel": "fp2_mul", "shape": [2, 12, 64],
           "host_us": {k: _host_us(f) for k, f in parts.items()}})
+
+    k4_fn = fused._k4_fn("fp_add")
+    k4_out, _, k4_args = fused._k4_args("fp_add", (a, b), 0)     # k4_out lives over the launches
+    fp2 = _rand_fp((3, 2, 12, 64), gen)
+    x0, x1 = fp2[..., 0, :, :], fp2[..., 1, :, :]
+    one = _rand_fp((12, 1), gen)
+
+    k4_parts = {
+        "check": lambda: fused._check_additive("fp_add", (a, b), 0),
+        "launch_args": lambda: fused._k4_args("fp_add", (a, b), 0),
+        "launch_args_strided": lambda: fused._k4_args("fp_add", (x0, x1), 0),
+        "function_lookup": lambda: fused._k4_fn("fp_add"),
+        "current_device": torch.cuda.current_device,
+        "raw_stream": lambda: torch._C._cuda_getCurrentRawStream(a.device.index),
+        "ctypes_launch": lambda: k4_fn(*k4_args, stream),
+        "whole_call": lambda: fused.fp_add(a, b),
+        "whole_call_strided": lambda: fused.fp_add(x0, x1),
+        "whole_call_broadcast": lambda: fused.fp_add(a, one),
+        "whole_call_mul_small": lambda: fused.fp_mul_small(a, K4_TIMED_K),
+    }
+    emit({"phase": "wrapper", "kernel": "fp_add", "shape": [2, 12, 64],
+          "host_us": {k: _host_us(f) for k, f in k4_parts.items()}})
     fused.reset_launches()
 
 
 def phase_main_path_shapes(shapes, phase="main_path_shapes", required=None):
     """Every kernel against its plain version at each operand shape a path
-    gave it (stacked leading rows included), tolerance 0. Each kernel in
-    `required` (default: all) must have a recorded shape; the others are
-    held at theirs, if any."""
+    gave it (stacked leading rows included; K4 at each operand layout, its
+    strides, broadcasts and k), tolerance 0. Each kernel in `required`
+    (default: all) must have a recorded shape; the others are held at
+    theirs, if any."""
     from lighthouse_tpu_torch.ops import fused
 
-    gen = torch.Generator(device="cuda")
+    gen = torch.Generator(device=DEVICE)
     gen.manual_seed(SEED + 1)
     required = fused._KERNELS if required is None else required
     errs = {}
@@ -381,9 +530,22 @@ def phase_main_path_shapes(shapes, phase="main_path_shapes", required=None):
             if name in required:
                 raise AssertionError(f"no {phase} recorded for {name}")
             continue
-        errs[name] = max(_compare(name, list(sh), gen)[1] for sh in sorted(shapes[name]))
+        if name in K4:
+            err = 0
+            for layout, k in sorted(shapes[name]):
+                xs = [_rand_fp(sh, gen, st) for sh, st in layout]
+                err = max(err, _check_equal(name, f"{layout} k={k}", xs, k))
+            errs[name] = err
+            recorded = sorted({tuple(sh for sh, _ in layout) for layout, _ in shapes[name]})
+            extra = {"layouts": len(shapes[name]),
+                     "strided_or_broadcast": sum(
+                         1 for layout, _ in shapes[name]
+                         if any(st != torch.empty(sh, device="meta").stride() for sh, st in layout))}
+        else:
+            errs[name] = max(_compare(name, list(sh), gen)[1] for sh in sorted(shapes[name]))
+            recorded, extra = sorted(shapes[name]), {}
         emit({"phase": phase, "kernel": name, "tolerance": 0, "mismatches": 0,
-              "max_abs_err": errs[name], "shapes": sorted(shapes[name])})
+              "max_abs_err": errs[name], "shapes": recorded, **extra})
     fused.reset_launches()
     return errs
 
@@ -409,58 +571,88 @@ def _timed_verify(verify, *args):
     return ok, time.perf_counter() - t0
 
 
-def _stage_seconds(sets, device):
-    """One more headline verify, split at the stage boundaries (staging on
-    the host, then h2g2, prepare and pairing, each ended by a synchronise)."""
+def _bls_stages(sets):
+    """The headline verify's stages as thunks on fixed inputs, each stage's
+    inputs made once by the stages before it: staging on the host, then
+    h2g2, prepare and pairing (which returns the verdict)."""
     from lighthouse_tpu_torch.ops import backend
 
-    marks = [time.perf_counter()]
-
-    def mark():
-        torch.cuda.synchronize()
-        marks.append(time.perf_counter())
-
+    device = torch.device(DEVICE)
     args, m_bucket, all_checked = backend.stage(sets, device)
     u, inv_idx, row_mask, pk, sig, sig_checked, set_mask, scalars = args
-    mark()
     h = backend._h2g2(u)
-    mark()
-    p_proj, s_proj, valid = backend._prepare(pk, sig, sig_checked, set_mask, scalars,
-                                             inv_idx, m_bucket, all_checked)
-    mark()
-    ok = bool(backend._pairing_check(p_proj, h, s_proj, row_mask, valid).item())
-    mark()
+    prep = (pk, sig, sig_checked, set_mask, scalars, inv_idx, m_bucket, all_checked)
+    p_proj, s_proj, valid = backend._prepare(*prep)
+    return {"staging": lambda: backend.stage(sets, device),
+            "h2g2": lambda: backend._h2g2(u),
+            "prepare": lambda: backend._prepare(*prep),
+            "pairing": lambda: bool(backend._pairing_check(p_proj, h, s_proj, row_mask,
+                                                           valid).item())}
+
+
+def _stage_seconds(stages, what):
+    """Wall seconds of each stage thunk, each ended by a synchronise; the
+    last must return True."""
+    out = {}
+    for name, fn in stages.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ok = fn()
+        torch.cuda.synchronize()
+        out[name] = time.perf_counter() - t0
     if ok is not True:
-        raise AssertionError("headline batch did not verify stage by stage")
-    names = ("staging", "h2g2", "prepare", "pairing")
-    return {k: b - a for k, a, b in zip(names, marks, marks[1:])}
+        raise AssertionError(f"{what} did not verify stage by stage")
+    return out
 
 
 def _watched(fn):
     """fn() with every kernel call's operand shapes recorded -> (its result,
     {kernel: set of operand shapes}, {kernel: {operand n: calls}},
-    {kernel: {first operand's shape: calls}})."""
+    {kernel: {first operand's shape: calls}}). K4's record is of operand
+    layouts, ((shape, strides) per operand, k), and its by_n also counts
+    mul_small's calls per k under ("k", k)."""
     from lighthouse_tpu_torch.ops import fused
 
     shapes = {name: set() for name in fused.launches}
     by_n = {name: {} for name in fused.launches}
     by_shape = {name: {} for name in fused.launches}
-    run = fused._run
+    run, run_additive = fused._run, fused._run_additive
 
-    def watch(name, *xs):
-        shapes[name].add(tuple(tuple(x.shape) for x in xs))
+    def count(name, xs):
         n = xs[0].shape[-1]
         by_n[name][n] = by_n[name].get(n, 0) + 1
         key = tuple(xs[0].shape)
         by_shape[name][key] = by_shape[name].get(key, 0) + 1
+
+    def watch(name, *xs):
+        shapes[name].add(tuple(tuple(x.shape) for x in xs))
+        count(name, xs)
         return run(name, *xs)
 
-    fused._run = watch
+    def watch_additive(name, xs, k=0):
+        shapes[name].add((tuple((tuple(x.shape), tuple(x.stride())) for x in xs), k))
+        count(name, xs)
+        if name == "fp_mul_small":
+            by_n[name][("k", k)] = by_n[name].get(("k", k), 0) + 1
+        return run_additive(name, xs, k)
+
+    fused._run, fused._run_additive = watch, watch_additive
     try:
         out = fn()
     finally:
-        fused._run = run
+        fused._run, fused._run_additive = run, run_additive
     return out, shapes, by_n, by_shape
+
+
+def _by_n_json(by_n):
+    """{kernel: {n or ("k", k): calls}} -> JSON keys, n first, in order."""
+    def key(kv):
+        n = kv[0]
+        return (1, n[1]) if isinstance(n, tuple) else (0, n)
+
+    return {name: {(f"k={n[1]}" if isinstance(n, tuple) else str(n)): c
+                   for n, c in sorted(v.items(), key=key)}
+            for name, v in by_n.items()}
 
 
 def phase_verify():
@@ -488,7 +680,7 @@ def phase_verify():
     missing = [k for k, v in launches.items() if v <= 0]
     if missing:
         raise AssertionError(f"the main path launched no {missing}")
-    stages_s = _stage_seconds(sets, torch.device("cuda"))
+    stages_s = _stage_seconds(_bls_stages(sets), "headline batch")
 
     # Poison set 69: same message as set 5 (69 % 64 == 5), set 6's keys.
     poisoned = list(sets)
@@ -517,8 +709,7 @@ def phase_verify():
                                           "verified": ok, "wall_s": wall_s,
                                           "first_run_s": warm_s, "sigs_per_s": n / wall_s,
                                           "launches": launches, "stages_s": stages_s,
-                                          "launches_by_n": {k: dict(sorted(v.items()))
-                                                            for k, v in by_n.items()},
+                                          "launches_by_n": _by_n_json(by_n),
                                           "launches_by_shape": {
                                               k: {str(sh): c for sh, c in sorted(
                                                   v.items(), key=lambda kv: -kv[1])}
@@ -527,13 +718,14 @@ def phase_verify():
           "distinct_256": {"verified": ok256, "wall_s": d_s, "sigs_per_s": 256 / d_s},
           "find_invalid_32": {"culprits": culprits, "wall_s": find_s},
           "host_signing_s": sign_s + sign2_s})
-    return launches, shapes, by_shape
+    return launches, shapes, by_shape, (lambda: api.verify_signature_sets(sets),
+                                        lambda: _bls_stages(sets))
 
 
 def phase_top_shapes(by_shape, lib):
-    """The entries of library `lib` (K1 or K2) timed at the three operand
+    """The entries of library `lib` (K1, K2 or K4) timed at the three operand
     shapes with the most launches in the headline verify's record (phase
-    k1_shapes or k2_shapes)."""
+    k1_shapes, k2_shapes or k4_shapes)."""
     from lighthouse_tpu_torch.ops import fused
 
     gen = torch.Generator(device="cuda")
@@ -623,34 +815,23 @@ def _kzg_batch(kzg, tau: int, rng, count: int):
     return blobs, commitments, proofs
 
 
-def _kzg_stage_seconds(kzg, blobs, commitments, proofs):
-    """One more verify of a batch, split at the stage boundaries (the host's
-    challenges, evaluations and r; staging; stage A; stage B with the sums;
-    the pairing), each ended by a synchronise."""
+def _kzg_stages(kzg, blobs, commitments, proofs):
+    """A KZG verify's stages as thunks on fixed inputs (as _bls_stages): the
+    host's challenges, evaluations and r; staging; stage A; stage B with the
+    sums; the pairing."""
     from lighthouse_tpu_torch.ops import kzg as okzg
-    from lighthouse_tpu_torch.ops import limbs as lb
 
-    marks = [time.perf_counter()]
-
-    def mark():
-        torch.cuda.synchronize()
-        marks.append(time.perf_counter())
-
+    device = torch.device(DEVICE)
     zs, ys, r = kzg.batch_inputs(blobs, commitments, proofs)
-    mark()
-    commit, proof, g2_tau, y_words, z_words, r_words = okzg.stage(
-        commitments, zs, ys, proofs, r, kzg.g2_tau, lb.default_device())
-    mark()
+    staged = okzg.stage(commitments, zs, ys, proofs, r, kzg.g2_tau, device)
+    commit, proof, g2_tau, y_words, z_words, r_words = staged
     term = okzg._stage_a(commit, proof, y_words, z_words)
-    mark()
     sums = okzg._stage_b(term, proof, r_words)
-    mark()
-    ok = bool(okzg._pairing_check(sums, g2_tau).item())
-    mark()
-    if ok is not True:
-        raise AssertionError("KZG batch did not verify stage by stage")
-    names = ("host", "staging", "stage_a", "stage_b", "pairing")
-    return {k: b - a for k, a, b in zip(names, marks, marks[1:])}
+    return {"host": lambda: kzg.batch_inputs(blobs, commitments, proofs),
+            "staging": lambda: okzg.stage(commitments, zs, ys, proofs, r, kzg.g2_tau, device),
+            "stage_a": lambda: okzg._stage_a(commit, proof, y_words, z_words),
+            "stage_b": lambda: okzg._stage_b(term, proof, r_words),
+            "pairing": lambda: bool(okzg._pairing_check(sums, g2_tau).item())}
 
 
 def _kzg_vectors():
@@ -707,9 +888,9 @@ def phase_kzg():
         if missing:
             raise AssertionError(f"the KZG path ({name}) launched no {missing}")
         runs[name] = {"blobs": len(batch[0]), "verified": ok, "wall_s": wall_s,
-                      "first_run_s": first_s, "stages_s": _kzg_stage_seconds(kzg, *batch),
+                      "first_run_s": first_s, "stages_s": _stage_seconds(_kzg_stages(kzg, *batch), f"KZG batch {name}"),
                       "launches": launches[name],
-                      "launches_by_n": {k: dict(sorted(v.items())) for k, v in by_n.items()},
+                      "launches_by_n": _by_n_json(by_n),
                       "launches_by_shape": {
                           k: {str(sh): c for sh, c in sorted(v.items(), key=lambda kv: -kv[1])}
                           for k, v in by_shape.items()}}
@@ -742,13 +923,139 @@ def phase_kzg():
           "vectors": {case: got for case, (got, _) in vectors.items()},
           "vectors_s": vectors_s})
     fused.reset_launches()
-    return launches, shapes
+    return launches, shapes, (lambda: kzg.verify_blob_kzg_proof_batch(*batches["by_root"]),
+                              lambda: _kzg_stages(kzg, *batches["by_root"]))
+
+
+# The port's own kernels in a trace (csrc/*.cu, each in an anonymous
+# namespace): matched against the wrapper's launch counts.
+PORT_KERNEL = re.compile(r"^void \(anonymous namespace\)::fp(_add|_mul|2|12)_kernel")
+
+
+def _trace(fn):
+    """fn() under torch.profiler -> (its result, the CUDA kernels it ran,
+    the port's among them, the device's busy ms (the union of every device
+    event's span), its idle share of the wall, the ten kernels launched
+    most often)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kernels = [e for e in events if not e.name.startswith(("Memcpy", "Memset"))]
+    busy, end = 0.0, -math.inf
+    for start, stop in sorted((e.time_range.start, e.time_range.end) for e in events):
+        busy += max(0.0, stop - max(start, end))
+        end = max(end, stop)
+    counts = collections.Counter(e.name for e in kernels)
+    return out, {"wall_s": wall, "kernels": len(kernels), "device_events": len(events),
+                 "port_kernels": sum(1 for e in kernels if PORT_KERNEL.match(e.name)),
+                 "busy_ms": busy / 1e3, "idle_share_of_wall": 1 - busy / 1e6 / wall,
+                 "top_by_count": [{"name": name[:160], "count": c}
+                                  for name, c in counts.most_common(10)],
+                 "postprocess_s": time.perf_counter() - t1}
+
+
+def _profiled(fn):
+    """fn() once to warm, then traced -> (its result, the trace, the wrapper
+    launches of the traced call). A trace is complete when it holds every
+    port kernel the wrappers launched; torch.profiler has been seen to drop
+    them from a short trace taken right after a long one, so an incomplete
+    trace is taken once more, and a second one fails the phase."""
+    from lighthouse_tpu_torch.ops import fused
+
+    fn()
+    for _ in range(2):
+        fused.reset_launches()
+        out, tr = _trace(fn)
+        launched = dict(fused.launches)
+        if tr["port_kernels"] == sum(launched.values()):
+            return out, tr, launched
+    raise AssertionError(f"the trace holds {tr['port_kernels']} port kernels of the "
+                         f"{sum(launched.values())} launched")
+
+
+def _units(gen):
+    """One call of each unit at the headline's shapes (G1 at n sets, G2 and
+    the Miller steps at m messages and m + 1 pairs): name -> thunk."""
+    from lighthouse_tpu_torch.ops import curves as cv
+    from lighthouse_tpu_torch.ops import fused, pairing
+
+    n, m = HEADLINE["n_sets"], HEADLINE["distinct"]
+    a, b = (_rand_fp((6, 12, n), gen) for _ in range(2))
+    fp2 = _rand_fp((3, 2, 12, m), gen)
+    one = _rand_fp((12, 1), gen)
+    g1a, g1b = (_rand_fp((3, 12, n), gen) for _ in range(2))
+    g2a, g2b = (_rand_fp((3, 2, 12, m), gen) for _ in range(2))
+    t, q = (_rand_fp((3, 2, 12, m + 1), gen) for _ in range(2))
+    px, py, pz = (_rand_fp((12, m + 1), gen) for _ in range(3))
+    return {
+        "fp_add": lambda: fused.fp_add(a, b),
+        "fp_sub": lambda: fused.fp_sub(a, b),
+        "fp_neg": lambda: fused.fp_neg(a),
+        "fp_mul_small": lambda: fused.fp_mul_small(a, K4_TIMED_K),
+        "fp_add_broadcast": lambda: fused.fp_add(a, one),
+        "fp_add_strided": lambda: fused.fp_add(fp2[..., 0, :, :], fp2[..., 1, :, :]),
+        "g1_add": lambda: cv.G1.add(g1a, g1b),
+        "g1_double": lambda: cv.G1.double(g1a),
+        "g2_add": lambda: cv.G2.add(g2a, g2b),
+        "g2_double": lambda: cv.G2.double(g2a),
+        "miller_dbl_step": lambda: pairing._dbl_step(t, px, py, pz),
+        "miller_add_step": lambda: pairing._add_step(t, q, px, py, pz),
+    }
+
+
+def phase_profile(headline, kzg_by_root):
+    """The CUDA kernels of one call of each unit, of each device stage of
+    the headline and by_root verifies, then torch.profiler over one warm
+    eager headline verify and one warm by_root KZG verify (module
+    docstring, phase 7). The short traces go first: see _profiled.
+    headline and kzg_by_root are (verify thunk, stage thunks maker)."""
+    from lighthouse_tpu_torch.ops import fused
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 4)
+    per_unit = {}
+    for name, fn in _units(gen).items():
+        _, tr, launched = _profiled(fn)
+        per_unit[name] = {"kernels": tr["kernels"], "wrapper_launches": sum(launched.values()),
+                          "busy_ms": tr["busy_ms"]}
+    for name in ("fp_add", "fp_sub", "fp_add_broadcast", "fp_add_strided"):
+        if per_unit[name]["kernels"] != 1:
+            raise AssertionError(f"{name} ran {per_unit[name]['kernels']} CUDA kernels, not 1")
+    per_stage = {}
+    for path, (_, make_stages) in (("bls_headline", headline), ("kzg_by_root", kzg_by_root)):
+        per_stage[path] = {}
+        for stage, fn in make_stages().items():
+            if stage in ("host", "staging"):
+                continue
+            _, tr, launched = _profiled(fn)
+            per_stage[path][stage] = {"kernels": tr["kernels"], "busy_ms": tr["busy_ms"],
+                                      "wall_s": tr["wall_s"],
+                                      "wrapper_launches": sum(launched.values())}
+    runs = {}
+    for name, (verify, _) in (("bls_headline", headline), ("kzg_by_root", kzg_by_root)):
+        ok, runs[name], runs[name]["wrapper_launches"] = _profiled(verify)
+        if ok is not True:
+            raise AssertionError(f"{name} did not verify under the profiler")
+    emit({"phase": "profile", **runs, "kernels_per_stage": per_stage,
+          "kernels_per_unit_call": per_unit})
+    fused.reset_launches()
+    return runs
 
 
 def _summary(kernels, by_shape, launches, shape_errs, launches_kzg):
+    from lighthouse_tpu_torch.ops import fused
+
     summary = []
     for name, per_n in kernels.items():
-        lib = "fp12_op" if name.startswith("fp12") else ("fp2_mul" if name.startswith("fp2") else "fp_mul")
+        lib = fused._KERNELS[name][0]
         top = per_n[max(NS)]
         summary.append({"name": name, "route": "cuda", "source": SOURCES[lib][0],
                         "replaces": SOURCES[lib][1], "launches": launches.get(name),
@@ -784,14 +1091,15 @@ def main(argv) -> int:
         print(nvidia_smi("name,power.limit"), flush=True)
         emit({"kernels": _summary(kernels, kernel_by_shape, {}, {}, {})})
         return 0
-    launches, shapes, by_shape = phase_verify()
+    launches, shapes, by_shape, headline = phase_verify()
     shape_errs = phase_main_path_shapes(shapes)
     for lib in FLOORED:
         phase_top_shapes(by_shape, lib)
     phase_vectors()
-    launches_kzg, kzg_shapes = phase_kzg()
+    launches_kzg, kzg_shapes, kzg_by_root = phase_kzg()
     kzg_errs = phase_main_path_shapes(kzg_shapes, "kzg_shapes", KZG_REQUIRED)
     errs = {k: max(shape_errs[k], kzg_errs.get(k, 0)) for k in shape_errs}
+    phase_profile(headline, kzg_by_root)
     summary = _summary(kernels, kernel_by_shape, launches, errs, launches_kzg)
     emit({"phase": "done", "seconds": time.perf_counter() - t0})
     print(nvidia_smi("name,power.limit"), flush=True)

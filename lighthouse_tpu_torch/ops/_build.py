@@ -20,17 +20,32 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-SOURCES = ("fp_mul", "fp2_mul", "fp12_op")
+SOURCES = ("fp_mul", "fp2_mul", "fp12_op", "fp_add")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ["-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-# C entry points per library: name -> number of tensor pointers (output first).
-# lh_fp_empty and lh_fp2_empty launch an empty kernel on K1's and K2's grid:
+_PTR, _INT = ctypes.c_void_p, ctypes.c_longlong
+
+
+def _sig(n_ptr: int, n_int: int = 2) -> list:
+    """ctypes argument types: tensor pointers (output first), integers, then
+    the stream (K4's: the geometry pointer, then the stream)."""
+    return [_PTR] * n_ptr + [_INT] * n_int + [_PTR]
+
+
+# C entry points per library: name -> argument types. Most take (output,
+# inputs..., rows, n, stream); K4's take (output, inputs..., rows, n, [k,]
+# geometry, stream), the geometry a pointer to int64 strides or null
+# (csrc/fp_add.cu). lh_fp_empty, lh_fp2_empty and
+# lh_fp_add_empty launch an empty kernel on K1's, K2's and K4's grid:
 # chip_smoke.py's floor.
 ENTRY_POINTS = {
-    "fp_mul": {"lh_fp_mul": 3, "lh_fp_sqr": 2, "lh_fp_empty": 1},
-    "fp2_mul": {"lh_fp2_mul": 3, "lh_fp2_sqr": 2, "lh_fp2_empty": 1},
-    "fp12_op": {"lh_fp12_sqr": 2, "lh_fp12_mul": 3, "lh_fp12_line": 3},
+    "fp_mul": {"lh_fp_mul": _sig(3), "lh_fp_sqr": _sig(2), "lh_fp_empty": _sig(1)},
+    "fp2_mul": {"lh_fp2_mul": _sig(3), "lh_fp2_sqr": _sig(2), "lh_fp2_empty": _sig(1)},
+    "fp12_op": {"lh_fp12_sqr": _sig(2), "lh_fp12_mul": _sig(3), "lh_fp12_line": _sig(3)},
+    "fp_add": {"lh_fp_add": _sig(3) + [_PTR], "lh_fp_sub": _sig(3) + [_PTR],
+               "lh_fp_neg": _sig(2) + [_PTR], "lh_fp_mul_small": _sig(2, 3) + [_PTR],
+               "lh_fp_add_empty": _sig(1)},
 }
 
 _LIBS: dict = {}
@@ -122,10 +137,9 @@ def library(name: str) -> ctypes.CDLL:
         if not target.exists():
             build_all()
         lib = ctypes.CDLL(str(target))
-        for fn_name, n_ptr in ENTRY_POINTS[name].items():
+        for fn_name, argtypes in ENTRY_POINTS[name].items():
             fn = getattr(lib, fn_name)
-            fn.argtypes = ([ctypes.c_void_p] * n_ptr
-                           + [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p])
+            fn.argtypes = argtypes
             fn.restype = ctypes.c_int
         _LIBS[name] = lib
     return lib

@@ -1,4 +1,4 @@
-"""The port's three hand-written kernels, their plain PyTorch versions and
+"""The port's four hand-written kernels, their plain PyTorch versions and
 their launch counts.
 
 Counterparts: ``lighthouse_tpu/ops/fused.py`` (the Pallas kernels) and the
@@ -9,6 +9,9 @@ XLA field/tower products they fuse, ``ops/limbs.py`` / ``ops/tower.py``
     K2  fp2_mul / fp2_sqr    csrc/fp2_mul.cu   replaces fused.py:279 _fwd_call + :319 _inv_call (offset)
     K3  fp12_sqr / fp12_mul / fp12_mul_line
                              csrc/fp12_op.cu   replaces fused.py:578 _k3_fp12_call
+    K4  fp_add / fp_sub / fp_neg / fp_mul_small
+                             csrc/fp_add.cu    no Pallas counterpart: the additions XLA
+                                               fuses (ops/bm/limbs.py:343-353 add / sub / neg)
 
 Representation (one for the whole port): an Fp element is 12 little-endian
 32-bit limbs of its Montgomery form x * 2^384 mod p, canonical in [0, p),
@@ -27,7 +30,9 @@ take K3's signed sums term for term from the same tables, and those
 tables are checked against K3's accumulator bounds. K2's plain table
 (``_K2_TABLE``) sums the four schoolbook products, where the kernel sums
 three Karatsuba products (a square two); the outputs are canonical, so
-the two still agree bit for bit.
+the two still agree bit for bit. K4's plain versions run the 12-limb
+carry and borrow chains as int64 torch ops with a lookahead on packed
+bit vectors.
 
 What bounds the kernels on an H100 (3.35 TB/s, 16.75e12 32-bit
 multiply-adds/s, i.e. 5 multiply-adds per byte), counting the work each
@@ -44,9 +49,12 @@ products to the lanes of a block: a warp per group of at most 32
 products, one product per lane, the groups and their signed column sums
 planned here (``k3_plan_words``) and handed to the kernel as a generated
 header; its square runs 78 distinct Fp products, its product the 144 of
-the schoolbook. None uses tensor cores.
+the schoolbook. None uses tensor cores. K4 needs no multiplies and moves
+96 + 48 bytes an element (neg and mul_small 48 + 48): bound by bytes, one
+thread per element, its inputs strided or broadcast in place (no copy).
 """
 
+import ctypes
 import math
 from functools import lru_cache
 
@@ -63,6 +71,7 @@ R_BITS = 384
 launches = {
     "fp_mul": 0, "fp_sqr": 0, "fp2_mul": 0, "fp2_sqr": 0,
     "fp12_sqr": 0, "fp12_mul": 0, "fp12_line": 0,
+    "fp_add": 0, "fp_sub": 0, "fp_neg": 0, "fp_mul_small": 0,
 }
 
 
@@ -416,11 +425,98 @@ def fp12_mul_line_plain(a, line):
     return _chunked(lambda x, y: _fp12_plain("line", x, y), 12 * NL, 72, a, line)
 
 
+# K4's plain versions: the 12-limb carry and borrow chains on int64 copies
+# of the limbs, each chain resolved at once by a lookahead on packed bit
+# vectors ((G << 1) + P) ^ P. The outputs are canonical, as the kernel's.
+
+_M32 = 0xFFFFFFFF
+
+
+class _AddConsts:
+    def __init__(self, device):
+        def col(vals):
+            return torch.tensor(vals, dtype=torch.int64, device=device)[:, None]
+
+        self.p64 = col([(P >> (32 * i)) & _M32 for i in range(NL)])
+        self.pow2 = col([1 << i for i in range(NL)])
+        self.idx = col(list(range(NL)))
+
+
+@lru_cache(maxsize=None)
+def _add_consts(device) -> _AddConsts:
+    return _AddConsts(device)
+
+
+def _u64(x):
+    return x.to(torch.int64) & _M32
+
+
+def _i32(v):
+    return torch.where(v > 0x7FFFFFFF, v - (1 << 32), v).to(torch.int32)
+
+
+def _limb_lookahead(gen, prop, c):
+    """Carries into each of the 12 limbs (axis -2) from generate/propagate
+    flags. Returns (carries, carry out)."""
+    G = (gen.to(torch.int64) * c.pow2).sum(-2)
+    Pb = (prop.to(torch.int64) * c.pow2).sum(-2)
+    C = ((G << 1) + Pb) ^ Pb
+    return (C.unsqueeze(-2) >> c.idx) & 1, ((C >> NL) & 1).bool()
+
+
+def _add64(s, c):
+    """Resolve limb sums in [0, 2^33) to limbs mod 2^384."""
+    carry, _ = _limb_lookahead(s > _M32, s == _M32, c)
+    return (s + carry) & _M32
+
+
+def _sub64(d, c):
+    """Resolve limb differences in (-2^32, 2^32) -> (limbs mod 2^384,
+    borrow out)."""
+    borrow, out = _limb_lookahead(d < 0, d == 0, c)
+    return (d - borrow) & _M32, out
+
+
+def fp_add_plain(a, b):
+    a, b = torch.broadcast_tensors(a, b)
+    c = _add_consts(a.device)
+    s = _add64(_u64(a) + _u64(b), c)                 # a + b < 2p < 2^384
+    d, under = _sub64(s - c.p64, c)
+    return _i32(torch.where(under.unsqueeze(-2), s, d))
+
+
+def fp_sub_plain(a, b):
+    a, b = torch.broadcast_tensors(a, b)
+    c = _add_consts(a.device)
+    d, under = _sub64(_u64(a) - _u64(b), c)
+    s = _add64(d + c.p64, c)                         # (a - b + p) mod 2^384
+    return _i32(torch.where(under.unsqueeze(-2), s, d))
+
+
+def fp_neg_plain(a):
+    return fp_sub_plain(torch.zeros_like(a), a)
+
+
+def fp_mul_small_plain(a, k: int):
+    """a * k for 1 <= k < 2^16, by doubling and adding."""
+    acc = None
+    dbl = a
+    while k:
+        if k & 1:
+            acc = dbl if acc is None else fp_add_plain(acc, dbl)
+        k >>= 1
+        if k:
+            dbl = fp_add_plain(dbl, dbl)
+    return acc
+
+
 PLAIN = {
     "fp_mul": fp_mul_plain, "fp_sqr": fp_sqr_plain,
     "fp2_mul": fp2_mul_plain, "fp2_sqr": fp2_sqr_plain,
     "fp12_sqr": fp12_sqr_plain, "fp12_mul": fp12_mul_plain,
     "fp12_line": fp12_mul_line_plain,
+    "fp_add": fp_add_plain, "fp_sub": fp_sub_plain, "fp_neg": fp_neg_plain,
+    "fp_mul_small": fp_mul_small_plain,
 }
 
 # --------------------------------------------------------------------------
@@ -438,6 +534,11 @@ _KERNELS = {
     "fp12_sqr": ("fp12_op", "lh_fp12_sqr", ("fp12",)),
     "fp12_mul": ("fp12_op", "lh_fp12_mul", ("fp12", "fp12")),
     "fp12_line": ("fp12_op", "lh_fp12_line", ("fp12", "line")),
+    # K4 launches through _run_additive, not _run.
+    "fp_add": ("fp_add", "lh_fp_add", ("fp", "fp")),
+    "fp_sub": ("fp_add", "lh_fp_sub", ("fp", "fp")),
+    "fp_neg": ("fp_add", "lh_fp_neg", ("fp",)),
+    "fp_mul_small": ("fp_add", "lh_fp_mul_small", ("fp",)),
 }
 
 
@@ -527,7 +628,157 @@ def fp12_mul_line(a, line):
     return _run("fp12_line", a, line)
 
 
+# --- K4 ---------------------------------------------------------------------
+#
+# The additive layer runs 7k-12k times a verify, so its wrapper's host time
+# is the eager path's: it resolves the C function once, checks only what a
+# wrong call would corrupt (dtype, the limb axis, the device), and hands
+# strided and broadcast inputs to the kernel as they are.
+
+MUL_SMALL_MAX = 1 << 16
+_K4_FNS: dict = {}
+
+
+def _k4_fn(name):
+    fn = _K4_FNS.get(name)
+    if fn is None:
+        fn = _K4_FNS[name] = getattr(_build.library("fp_add"), _KERNELS[name][1])
+    return fn
+
+
+def _broadcast_shape(s, t):
+    """torch.broadcast_shapes for two shapes, at a tenth of its host time."""
+    if len(s) < len(t):
+        s, t = t, s
+    t = (1,) * (len(s) - len(t)) + tuple(t)
+    out = []
+    for u, v in zip(s, t):
+        if u != v and v != 1 and u != 1:
+            raise ValueError(f"shapes {tuple(s)} and {tuple(t)} do not broadcast")
+        out.append(v if u == 1 else u)
+    return tuple(out)
+
+
+def _geometry(shape, xs):
+    """Each input's element strides over an output of `shape` (..., 12, n),
+    its lead axes folded into two row levels (r1, r0): -> (r0, [(s1, s0,
+    sl, sn) per input]), or None where the lead axes fold into more than
+    two levels. A broadcast axis has stride 0."""
+    nd = len(shape)
+    strides = []
+    for x in xs:
+        off = nd - x.dim()
+        s = [0] * nd
+        for i, (size, st) in enumerate(zip(x.shape, x.stride())):
+            if size != 1:
+                s[off + i] = st
+        strides.append(s)
+    dims = []                                   # [(size, [stride per input])], outer first
+    for i in range(nd - 2):
+        size = shape[i]
+        if size == 1:
+            continue
+        cur = [s[i] for s in strides]
+        if dims and all(prev == st * size for prev, st in zip(dims[-1][1], cur)):
+            dims[-1] = (dims[-1][0] * size, cur)
+        else:
+            dims.append((size, cur))
+    if len(dims) > 2:
+        return None
+    while len(dims) < 2:
+        dims.insert(0, (1, [0] * len(xs)))
+    (_, s1), (r0, s0) = dims
+    return r0, [(s1[k], s0[k], strides[k][-2], strides[k][-1]) for k in range(len(xs))]
+
+
+def _k4_args(name, xs, k):
+    """The output of one K4 launch and the C entry point's arguments but the
+    stream: the data pointers, rows, n, k for mul_small, and the geometry
+    (None for dense inputs, else an int64 array of r0 and each input's
+    strides). Also returns the inputs the pointers refer to, which the
+    caller keeps alive over the launch."""
+    a = xs[0]
+    b = xs[-1]
+    if a.shape == b.shape and a.is_contiguous() and b.is_contiguous():
+        out = torch.empty_like(a)
+        n = a.shape[-1]
+        geom = None
+    else:
+        shape = _broadcast_shape(a.shape, b.shape)
+        n = shape[-1]
+        out = torch.empty(shape, dtype=torch.int32, device=a.device)
+        folded = _geometry(shape, xs)
+        if folded is None:                      # lead axes that fold into no two levels
+            xs = [x.expand(shape).contiguous() for x in xs]
+            geom = None
+        else:
+            r0, strides = folded
+            geom = (ctypes.c_longlong * (1 + 4 * len(xs)))(r0, *(v for g in strides for v in g))
+    rows = out.numel() // (NL * n) if n else 0
+    args = [out.data_ptr()] + [x.data_ptr() for x in xs] + [rows, n]
+    if name == "fp_mul_small":
+        args.append(k)
+    args.append(geom)
+    return out, xs, args
+
+
+def _check_additive(name, xs, k):
+    a = xs[0]
+    for x in xs:
+        if not isinstance(x, torch.Tensor) or x.dtype != torch.int32:
+            raise TypeError(f"{name}: operands must be int32 tensors")
+        if x.dim() < 2 or x.shape[-2] != NL:
+            raise ValueError(f"{name}: operand shape {tuple(x.shape)} does not end in (12, n)")
+        if x.device != a.device:
+            raise ValueError(f"{name}: operands on {a.device} and {x.device}")
+    if name == "fp_mul_small" and not (isinstance(k, int) and 1 <= k < MUL_SMALL_MAX):
+        raise ValueError(f"fp_mul_small: k = {k!r} is not an int in [1, 2^16)")
+
+
+def _run_additive(name, xs, k=0):
+    _check_additive(name, xs, k)
+    dev = xs[0].device
+    if dev.type == "cpu":
+        return PLAIN[name](*xs, k) if name == "fp_mul_small" else PLAIN[name](*xs)
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {dev}")
+    out, _inputs, args = _k4_args(name, xs, k)
+    if out.numel() == 0:
+        return out
+    fn = _k4_fn(name)
+    if dev.index == torch.cuda.current_device():
+        rc = fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
+    else:
+        with torch.cuda.device(dev):
+            rc = fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
+    if rc != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with cudaError_t {rc}")
+    launches[name] += 1
+    return out
+
+
+def fp_add(a, b):
+    """K4: a + b mod p on (..., 12, n), the operands broadcast."""
+    return _run_additive("fp_add", (a, b))
+
+
+def fp_sub(a, b):
+    """K4: a - b mod p, the operands broadcast."""
+    return _run_additive("fp_sub", (a, b))
+
+
+def fp_neg(a):
+    """K4: -a mod p (0 for 0)."""
+    return _run_additive("fp_neg", (a,))
+
+
+def fp_mul_small(a, k: int):
+    """K4: k a mod p for an int 1 <= k < 2^16."""
+    return _run_additive("fp_mul_small", (a,), k)
+
+
 WRAPPERS = {
     "fp_mul": fp_mul, "fp_sqr": fp_sqr, "fp2_mul": fp2_mul, "fp2_sqr": fp2_sqr,
     "fp12_sqr": fp12_sqr, "fp12_mul": fp12_mul, "fp12_line": fp12_mul_line,
+    "fp_add": fp_add, "fp_sub": fp_sub, "fp_neg": fp_neg, "fp_mul_small": fp_mul_small,
 }

@@ -8,9 +8,9 @@ loose-canonical, in [0, 2^384); the port's are Montgomery and canonical, so
 equality is limb equality and comparisons with JAX go through integers mod
 p (``convert.to_ints``).
 
-The products are the K1 kernel (``fused.fp_mul``). Additions run as torch
-ops on int64 copies of the limbs, with carries resolved by a lookahead on
-packed bit vectors, and return canonical values too.
+The products are the K1 kernel (``fused.fp_mul``); additions, subtractions,
+negations and small multiples are the K4 kernel (``fused.fp_add`` ...),
+whose operands may broadcast. Both return canonical values.
 """
 
 from functools import lru_cache
@@ -26,7 +26,6 @@ R = 1 << 384
 R_MOD_P = R % P
 R_INV = pow(R, -1, P)
 DTYPE = torch.int32
-_M32 = 0xFFFFFFFF
 
 
 def default_device(device=None) -> torch.device:
@@ -65,12 +64,6 @@ def limbs_to_ints(v) -> list:
 
 class _Consts:
     def __init__(self, device):
-        def col(vals):
-            return torch.tensor(vals, dtype=torch.int64, device=device)[:, None]
-
-        self.p64 = col([(P >> (32 * i)) & _M32 for i in range(L)])
-        self.pow2 = col([1 << i for i in range(L)])
-        self.idx = col(list(range(L)))
         self.zero = torch.zeros((L, 1), dtype=DTYPE, device=device)
         self.one = ints_to_limbs([1], device)            # Montgomery 1
         self.raw_one = torch.zeros((L, 1), dtype=DTYPE, device=device)
@@ -90,70 +83,12 @@ def one(device):
     return consts(device).one
 
 
-# --- Modular addition -------------------------------------------------------
+# --- Modular addition (K4) -------------------------------------------------
 
-
-def _u64(x):
-    return x.to(torch.int64) & _M32
-
-
-def _i32(v):
-    return torch.where(v > 0x7FFFFFFF, v - (1 << 32), v).to(DTYPE)
-
-
-def _lookahead(gen, prop, c):
-    """Carries into each limb from generate/propagate flags:
-    ((G << 1) + P) ^ P on packed bit vectors. Returns (carries, carry out)."""
-    G = (gen.to(torch.int64) * c.pow2).sum(-2)
-    Pb = (prop.to(torch.int64) * c.pow2).sum(-2)
-    C = ((G << 1) + Pb) ^ Pb
-    return (C.unsqueeze(-2) >> c.idx) & 1, ((C >> L) & 1).bool()
-
-
-def _add64(s, c):
-    """Resolve limb sums in [0, 2^33) to limbs mod 2^384."""
-    carry, _ = _lookahead(s > _M32, s == _M32, c)
-    return (s + carry) & _M32
-
-
-def _sub64(d, c):
-    """Resolve limb differences in (-2^32, 2^32) -> (limbs mod 2^384,
-    borrow out)."""
-    borrow, out = _lookahead(d < 0, d == 0, c)
-    return (d - borrow) & _M32, out
-
-
-def add(a, b):
-    a, b = torch.broadcast_tensors(a, b)
-    c = consts(a.device)
-    s = _add64(_u64(a) + _u64(b), c)                 # a + b < 2p < 2^384
-    d, under = _sub64(s - c.p64, c)
-    return _i32(torch.where(under.unsqueeze(-2), s, d))
-
-
-def sub(a, b):
-    a, b = torch.broadcast_tensors(a, b)
-    c = consts(a.device)
-    d, under = _sub64(_u64(a) - _u64(b), c)
-    s = _add64(d + c.p64, c)                         # (a - b + p) mod 2^384
-    return _i32(torch.where(under.unsqueeze(-2), s, d))
-
-
-def neg(a):
-    return sub(torch.zeros_like(a), a)
-
-
-def mul_small(a, k: int):
-    """a * k for a small positive int k, by doubling and adding."""
-    acc = None
-    dbl = a
-    while k:
-        if k & 1:
-            acc = dbl if acc is None else add(acc, dbl)
-        k >>= 1
-        if k:
-            dbl = add(dbl, dbl)
-    return acc
+add = fused.fp_add
+sub = fused.fp_sub
+neg = fused.fp_neg
+mul_small = fused.fp_mul_small
 
 
 # --- Products (K1) ----------------------------------------------------------
