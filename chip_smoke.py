@@ -27,15 +27,20 @@ Phases, each printing one JSON line:
             arguments, function lookup, device, stream, the ctypes launch),
             each timed alone over many calls.
 3. verify   the main path, batch signature-set verification: 4096 sets x 4
-            keys over 64 distinct messages must verify True (once more
-            split into its stages for their wall times), the same batch
-            with one poisoned set in a shared-message group False, 256
-            one-key sets with distinct messages True, and find_invalid_sets
-            must name the one culprit among 32 sets. Launch counts are reset
-            just before the headline batch and read just after it; the
-            warm-up run before it records each kernel's operand shapes and
-            its launches per operand n and per operand shape (K4: and per
-            k of mul_small).
+            keys over 64 distinct messages must verify True, first on the
+            eager path (ops/backend.core, uncaptured: a watched run records
+            each kernel's operand shapes and its launches per operand n and
+            per operand shape, K4 also per k of mul_small; then one more
+            run counts one verify's launches), then through the API, which
+            replays the bucket's CUDA graphs: the launch counts are reset
+            just before its first call (which runs each stage eagerly once
+            and captures it) and read just after, and every kernel must have
+            been launched; a warm call must launch nothing from Python. Then
+            the eager run split into its stages for their wall times, and
+            through the API: the same batch with one poisoned set in a
+            shared-message group False, 256 one-key sets with distinct
+            messages True, and find_invalid_sets must name the one culprit
+            among 32 sets.
 4. main_path_shapes
             every kernel against its plain version again, bit for bit, at
             each operand shape the headline verify gave it (stacked rows of
@@ -51,13 +56,14 @@ Phases, each printing one JSON line:
             by_range batch of 192 (KZG_BATCHES), 4096 random field
             elements each from SEED, committed and proven from a known tau
             (C = [p(tau)]G1, W = [(p(tau) - y) / (tau - z)]G1), must verify
-            True: a watched first run records each kernel's operand shapes,
-            the counts are reset just before the warm run and read just
-            after it (KZG_REQUIRED must be launched), and one more run is
-            split at its stages (host, staging, stage A, stage B with the
-            sums, pairing). Then by_root with two proofs swapped False,
-            with one field element changed False, with every blob zero (so
-            every commitment and proof at infinity) True, and the three
+            True: as in verify, a watched eager run records each kernel's
+            operand shapes and one more counts one verify's launches, then
+            the API's first call (KZG_REQUIRED must be launched) and a warm
+            one (nothing launched from Python), and an eager run is split
+            at its stages (host, staging, stage A, stage B with the sums,
+            pairing). Then through the API: by_root with two proofs swapped
+            False, with one field element changed False, with every blob
+            zero (so every commitment and proof at infinity) True, and the three
             Deneb vectors under tests/vectors/general/deneb/kzg/
             verify_blob_kzg_proof_batch/small with the production setup at
             their outputs.
@@ -65,7 +71,12 @@ Phases, each printing one JSON line:
             every kernel the KZG runs launched against its plain version,
             bit for bit, at each operand shape they gave it (K3 at n = 2
             and 1, K1 at 2 n_bucket lanes).
-7. profile  torch.profiler over one call of each unit (fp_add, fp_sub,
+7. warmer   the port's ShapeWarmer over WARMER_RUNGS with every m of each,
+            one headline verify run while it warms (True); then one more
+            key captured on the main thread, to compare; each graph the
+            warmer captured and every graph of the run with its costs, and
+            the 67-graph warm grid's cost extrapolated per kind.
+8. profile  torch.profiler over one call of each unit (fp_add, fp_sub,
             fp_neg and fp_mul_small on equal shapes, fp_add broadcast and
             strided: one CUDA kernel each, or the phase fails; G1/G2 add
             and double, the Miller doubling and addition steps), over each
@@ -76,8 +87,24 @@ Phases, each printing one JSON line:
             wrappers' launches), device busy ms, the device's idle share of
             the wall, the ten kernels launched most often.
 
-Then the card's name and power limit, the kernel summary line (with
-launches_kzg, each kernel's launches in each warm KZG run), and last
+9. graphs   the bucket graphs (ops/graphs.py): for the headline key
+            (4096, 4, 64, True) and the by_root and by_range KZG keys
+            (n_bucket 8 and 256), each graph's capture costs (eager warm-up,
+            capture and instantiation seconds, nodes, the wrappers'
+            launches during the capture, host RSS and pool bytes added);
+            on one staged batch with fixed scalars the replayed h_unique,
+            p_proj, s_proj, sets_valid and verdict, and KZG's terms, sums
+            and verdict, equal to the eager stages' (torch.equal); two
+            replays with different scalars give different p_proj and both
+            verify; eager and graph warm verifies, GRAPH_TIMED_CALLS each in
+            turns (median, spread); torch.profiler over one replayed
+            headline and by_root verify (nothing launched from Python, every
+            captured port kernel in the trace, busy ms, idle share).
+
+Then the card's name and power limit, the kernel summary line (launches:
+the main path's first headline verify through the API, which runs each
+stage eagerly and captures it; launches_per_verify: one eager verify, what
+a replay runs; launches_kzg and launches_kzg_per_verify likewise), and last
 {"ok": true, "device": {...}}. Any failure raises: the exit code is then
 not 0 and the last line is not printed. Without a card it exits 1 at once.
 
@@ -96,6 +123,7 @@ import collections
 import json
 import math
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -562,6 +590,44 @@ def _sign_sets(api, count, keys, msg_of, key_base):
     return sets
 
 
+def _eager_verify(sets):
+    """A headline-style verify on the eager path, uncaptured: staging, then
+    backend.core (the function the bucket graphs capture)."""
+    from lighthouse_tpu_torch.ops import backend
+
+    args, m_bucket, all_checked = backend.stage(sets, torch.device(DEVICE))
+    return bool(backend.core(*args, m_bucket=m_bucket, all_checked=all_checked).item())
+
+
+def _main_path_runs(verify, eager, what, required=None):
+    """The first and a warm run of a main-path verify through its entry
+    point (the first captures the bucket's graphs: each stage once eagerly,
+    then under capture; the warm one replays), with the launch counts reset
+    just before each and read just after. Each kernel of `required`
+    (default: all) must be launched in the first, and none from Python in
+    the warm one. -> (launches of the first run, its wall s, the warm
+    run's wall s)."""
+    from lighthouse_tpu_torch.ops import fused
+
+    required = fused.launches if required is None else required
+    fused.reset_launches()
+    ok, first_s = _timed_verify(verify, *eager)
+    launches = dict(fused.launches)
+    if ok is not True:
+        raise AssertionError(f"{what} did not verify on its first use")
+    missing = [k for k in required if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"the main path ({what}) launched no {missing}")
+    fused.reset_launches()
+    ok, wall_s = _timed_verify(verify, *eager)
+    if ok is not True:
+        raise AssertionError(f"{what} did not verify warm")
+    if sum(fused.launches.values()):
+        raise AssertionError(f"a warm {what} verify launched {dict(fused.launches)} "
+                             "from Python: it did not replay its graphs")
+    return launches, first_s, wall_s
+
+
 def _timed_verify(verify, *args):
     """verify(*args) -> (its verdict, wall seconds, synchronised)."""
     torch.cuda.synchronize()
@@ -666,20 +732,22 @@ def phase_verify():
     sets = (base * (n // len(base) + 1))[:n]
     sign_s = time.perf_counter() - t0
 
-    # First run: allocator warm-up, and the record of every operand shape
-    # the main path gives each kernel (the timed run below goes unwatched).
-    (ok, warm_s), shapes, by_n, by_shape = _watched(
-        lambda: _timed_verify(api.verify_signature_sets, sets))
+    # First run, eager: allocator warm-up, and the record of every operand
+    # shape the path gives each kernel (the timed run below goes unwatched).
+    (ok, warm_s), shapes, by_n, by_shape = _watched(lambda: _timed_verify(_eager_verify, sets))
     if ok is not True:
         raise AssertionError("headline batch did not verify")
     fused.reset_launches()
-    ok, wall_s = _timed_verify(api.verify_signature_sets, sets)
-    launches = dict(fused.launches)
+    ok, eager_s = _timed_verify(_eager_verify, sets)
+    per_verify = dict(fused.launches)
     if ok is not True:
         raise AssertionError("headline batch did not verify")
-    missing = [k for k, v in launches.items() if v <= 0]
+    missing = [k for k, v in per_verify.items() if v <= 0]
     if missing:
-        raise AssertionError(f"the main path launched no {missing}")
+        raise AssertionError(f"the eager headline verify launched no {missing}")
+    # The main path, the API: its first call captures the bucket's graphs.
+    launches, first_s, wall_s = _main_path_runs(api.verify_signature_sets, (sets,),
+                                                "headline")
     stages_s = _stage_seconds(_bls_stages(sets), "headline batch")
 
     # Poison set 69: same message as set 5 (69 % 64 == 5), set 6's keys.
@@ -707,8 +775,12 @@ def phase_verify():
     emit({"phase": "verify", "headline": {"sets": n, "keys_per_set": HEADLINE["keys"],
                                           "distinct_messages": HEADLINE["distinct"],
                                           "verified": ok, "wall_s": wall_s,
-                                          "first_run_s": warm_s, "sigs_per_s": n / wall_s,
-                                          "launches": launches, "stages_s": stages_s,
+                                          "first_use_s": first_s, "eager_wall_s": eager_s,
+                                          "eager_first_run_s": warm_s,
+                                          "sigs_per_s": n / wall_s,
+                                          "launches": launches,
+                                          "launches_per_eager_verify": per_verify,
+                                          "stages_s": stages_s,
                                           "launches_by_n": _by_n_json(by_n),
                                           "launches_by_shape": {
                                               k: {str(sh): c for sh, c in sorted(
@@ -718,8 +790,8 @@ def phase_verify():
           "distinct_256": {"verified": ok256, "wall_s": d_s, "sigs_per_s": 256 / d_s},
           "find_invalid_32": {"culprits": culprits, "wall_s": find_s},
           "host_signing_s": sign_s + sign2_s})
-    return launches, shapes, by_shape, (lambda: api.verify_signature_sets(sets),
-                                        lambda: _bls_stages(sets))
+    return (launches, per_verify, shapes, by_shape,
+            (lambda: _eager_verify(sets), lambda: _bls_stages(sets)), sets)
 
 
 def phase_top_shapes(by_shape, lib):
@@ -815,6 +887,17 @@ def _kzg_batch(kzg, tau: int, rng, count: int):
     return blobs, commitments, proofs
 
 
+def _kzg_eager(kzg, blobs, commitments, proofs):
+    """verify_blob_kzg_proof_batch on the eager path, uncaptured: the host's
+    challenges, staging, then ops/kzg._combine (the function the bucket
+    graph captures)."""
+    from lighthouse_tpu_torch.ops import kzg as okzg
+
+    zs, ys, r = kzg.batch_inputs(blobs, commitments, proofs)
+    staged = okzg.stage(commitments, zs, ys, proofs, r, kzg.g2_tau, torch.device(DEVICE))
+    return bool(okzg._combine(*staged)[-1].item())
+
+
 def _kzg_stages(kzg, blobs, commitments, proofs):
     """A KZG verify's stages as thunks on fixed inputs (as _bls_stages): the
     host's challenges, evaluations and r; staging; stage A; stage B with the
@@ -873,23 +956,28 @@ def phase_kzg():
     make_s = time.perf_counter() - t0
 
     shapes = {name: set() for name in fused.launches}
-    launches, runs = {}, {}
+    launches, per_verify, runs = {}, {}, {}
     for name, batch in batches.items():
-        (ok_first, first_s), rec, by_n, by_shape = _watched(
-            lambda: _timed_verify(kzg.verify_blob_kzg_proof_batch, *batch))
+        (ok_first, eager_first_s), rec, by_n, by_shape = _watched(
+            lambda: _timed_verify(_kzg_eager, kzg, *batch))
         for k, v in rec.items():
             shapes[k] |= v
         fused.reset_launches()
-        ok, wall_s = _timed_verify(kzg.verify_blob_kzg_proof_batch, *batch)
-        launches[name] = dict(fused.launches)
+        ok, eager_s = _timed_verify(_kzg_eager, kzg, *batch)
+        per_verify[name] = dict(fused.launches)
         if ok_first is not True or ok is not True:
             raise AssertionError(f"KZG batch {name} did not verify")
-        missing = [k for k in KZG_REQUIRED if launches[name][k] <= 0]
+        missing = [k for k in KZG_REQUIRED if per_verify[name][k] <= 0]
         if missing:
-            raise AssertionError(f"the KZG path ({name}) launched no {missing}")
+            raise AssertionError(f"the eager KZG verify ({name}) launched no {missing}")
+        launches[name], first_s, wall_s = _main_path_runs(
+            kzg.verify_blob_kzg_proof_batch, batch, f"KZG {name}", KZG_REQUIRED)
         runs[name] = {"blobs": len(batch[0]), "verified": ok, "wall_s": wall_s,
-                      "first_run_s": first_s, "stages_s": _stage_seconds(_kzg_stages(kzg, *batch), f"KZG batch {name}"),
+                      "first_use_s": first_s, "eager_wall_s": eager_s,
+                      "eager_first_run_s": eager_first_s,
+                      "stages_s": _stage_seconds(_kzg_stages(kzg, *batch), f"KZG batch {name}"),
                       "launches": launches[name],
+                      "launches_per_eager_verify": per_verify[name],
                       "launches_by_n": _by_n_json(by_n),
                       "launches_by_shape": {
                           k: {str(sh): c for sh, c in sorted(v.items(), key=lambda kv: -kv[1])}
@@ -923,8 +1011,9 @@ def phase_kzg():
           "vectors": {case: got for case, (got, _) in vectors.items()},
           "vectors_s": vectors_s})
     fused.reset_launches()
-    return launches, shapes, (lambda: kzg.verify_blob_kzg_proof_batch(*batches["by_root"]),
-                              lambda: _kzg_stages(kzg, *batches["by_root"]))
+    return (launches, per_verify, shapes,
+            (lambda: _kzg_eager(kzg, *batches["by_root"]),
+             lambda: _kzg_stages(kzg, *batches["by_root"])), (kzg, batches))
 
 
 # The port's own kernels in a trace (csrc/*.cu, each in an anonymous
@@ -1015,7 +1104,7 @@ def phase_profile(headline, kzg_by_root):
     """The CUDA kernels of one call of each unit, of each device stage of
     the headline and by_root verifies, then torch.profiler over one warm
     eager headline verify and one warm by_root KZG verify (module
-    docstring, phase 7). The short traces go first: see _profiled.
+    docstring, phase 8). The short traces go first: see _profiled.
     headline and kzg_by_root are (verify thunk, stage thunks maker)."""
     from lighthouse_tpu_torch.ops import fused
 
@@ -1050,7 +1139,228 @@ def phase_profile(headline, kzg_by_root):
     return runs
 
 
-def _summary(kernels, by_shape, launches, shape_errs, launches_kzg):
+# The graphs phase: warm verifies timed per path, the warmer's rungs, and the
+# warm grid's graphs (tests/test_torch_graphs.py counts them).
+GRAPH_TIMED_CALLS = 5
+WARMER_RUNGS = ((64, 1), (64, 4), (4096, 4))
+MAIN_THREAD_RUNG = (2048, 1)    # a rung no other phase reaches
+GRID_GRAPHS = {"prepare": 43, "h2g2": 12, "pairing": 12}
+
+
+def _all_graphs():
+    """Every StaticGraph the process has built: the BLS stage graphs and the
+    KZG graphs, by name."""
+    from lighthouse_tpu_torch.ops import backend
+    from lighthouse_tpu_torch.ops import kzg as okzg
+
+    builders = (backend._stage1_graph, backend._prepare_graph, backend._stage3_graph,
+                okzg._graphed)
+    return {g.name: g for b in builders for g in b.cache.values()}
+
+
+def _stats(graph):
+    if graph.stats is None:
+        raise AssertionError(f"graph {graph.name} was never captured")
+    return {"name": graph.name, "calls": graph.calls, **graph.stats}
+
+
+def _same(pairs, what):
+    """torch.equal on each (eager, graph) pair of outputs -> their names;
+    the first pair that differs fails the phase."""
+    for name, (eager, graph) in pairs.items():
+        if not torch.equal(eager, graph):
+            raise AssertionError(f"{what}: the replayed {name} differs from the eager one")
+    return sorted(pairs)
+
+
+def _bls_replay_checks(sets):
+    """On the same staged headline batch and scalars, the replayed stage
+    outputs against the eager stages', bit for bit; then two replays with
+    different scalars: different p_proj, both True."""
+    from lighthouse_tpu_torch.ops import backend
+
+    dev = torch.device(DEVICE)
+    n_bucket = backend._next_pow2(len(sets))
+    args, m_bucket, all_checked = backend.stage(
+        sets, dev, scalars=backend.draw_scalars(len(sets), n_bucket))
+    u, inv_idx, row_mask, pk, sig, sig_checked, set_mask, scalars = args
+    h = backend._h2g2(u)
+    p_proj, s_proj, valid = backend._prepare(pk, sig, sig_checked, set_mask, scalars, inv_idx,
+                                             m_bucket, all_checked)
+    verdict = backend._pairing_check(p_proj, h, s_proj, row_mask, valid)
+    core = backend.graph_core(n_bucket, pk.shape[0], m_bucket, all_checked, u.device)
+    with core.lock:
+        got = core(*args)
+        g_p, g_s, g_valid = core.prepare.outputs
+        equal = _same({"h_unique": (h, core.h2g2.outputs), "p_proj": (p_proj, g_p),
+                       "s_proj": (s_proj, g_s), "sets_valid": (valid, g_valid),
+                       "verdict": (verdict, got)}, "headline")
+        if not got.item():
+            raise AssertionError("the replayed headline did not verify")
+    p_by_draw = []
+    for _ in range(2):
+        args, _, _ = backend.stage(sets, dev, scalars=backend.draw_scalars(len(sets), n_bucket))
+        with core.lock:
+            if not core(*args).item():
+                raise AssertionError("a replay with fresh scalars did not verify")
+            p_by_draw.append(core.prepare.outputs[0].clone())
+    if torch.equal(*p_by_draw):
+        raise AssertionError("two replays with different scalars gave the same p_proj")
+    return core, {"key": [n_bucket, pk.shape[0], m_bucket, all_checked], "equal": equal,
+                  "p_proj_differs_between_draws": True, "both_draws_verified": True}
+
+
+def _kzg_replay_checks(kzg, batch):
+    """On the same staged KZG batch, the replayed terms, sums and verdict
+    against the eager _combine's, bit for bit."""
+    from lighthouse_tpu_torch.ops import kzg as okzg
+
+    blobs, commitments, proofs = batch
+    zs, ys, r = kzg.batch_inputs(blobs, commitments, proofs)
+    staged = okzg.stage(commitments, zs, ys, proofs, r, kzg.g2_tau, torch.device(DEVICE))
+    term, sums, verdict = okzg._combine(*staged)
+    graph = okzg._graphed(staged[0].shape[-1], 256, staged[0].device)
+    with graph.lock:
+        g_term, g_sums, g_verdict = graph(*staged)
+        equal = _same({"term": (term, g_term), "sums": (sums, g_sums),
+                       "verdict": (verdict, g_verdict)}, f"KZG n_bucket {staged[0].shape[-1]}")
+        if not g_verdict.item():
+            raise AssertionError("the replayed KZG batch did not verify")
+    return {"key": [staged[0].shape[-1], 256], "equal": equal}
+
+
+def _walls(eager, graph, what):
+    """Warm verifies on the eager path and through the graphs, in turns,
+    GRAPH_TIMED_CALLS each -> {path: median, spread and every wall s}."""
+    runs = {"eager": [], "graph": []}
+    for _ in range(GRAPH_TIMED_CALLS):
+        for path, fn in (("eager", eager), ("graph", graph)):
+            ok, wall_s = _timed_verify(fn)
+            if ok is not True:
+                raise AssertionError(f"{what} ({path}) did not verify")
+            runs[path].append(wall_s)
+    return {path: {"median_s": statistics.median(v), "min_s": min(v), "max_s": max(v),
+                   "runs_s": v} for path, v in runs.items()}
+
+
+def _replay_trace(verify, graphs, what):
+    """torch.profiler over one warm verify through the graphs: nothing
+    launched from Python, and every port kernel the graphs captured in the
+    trace (taken once more if not, as _profiled does)."""
+    from lighthouse_tpu_torch.ops import fused
+
+    captured = sum(g.stats["launches"] for g in graphs)
+    verify()
+    for _ in range(2):
+        fused.reset_launches()
+        ok, tr = _trace(verify)
+        if sum(fused.launches.values()):
+            raise AssertionError(f"a replayed {what} launched {dict(fused.launches)} from Python")
+        if tr["port_kernels"] == captured:
+            break
+    else:
+        raise AssertionError(f"the trace of a replayed {what} holds {tr['port_kernels']} port "
+                             f"kernels of the {captured} its graphs captured")
+    if ok is not True:
+        raise AssertionError(f"a replayed {what} did not verify under the profiler")
+    return {**tr, "captured_port_launches": captured,
+            "graph_nodes": sum(g.stats["nodes"] for g in graphs)}
+
+
+def phase_graphs(sets, kzg_state):
+    """The bucket graphs (module docstring, phase 9): each graph's capture
+    costs, bit-equality of replay and eager stage outputs, scalars as a
+    replayed input, eager against graph warm verifies, and one replayed
+    headline and by_root verify under the profiler."""
+    from lighthouse_tpu_torch.crypto.bls import api
+    from lighthouse_tpu_torch.ops import backend
+    from lighthouse_tpu_torch.ops import kzg as okzg
+
+    kzg, batches = kzg_state
+    core, bls_equal = _bls_replay_checks(sets)
+    kzg_graphs = {name: okzg._graphed(backend._next_pow2(len(b[0])), 256, core.h2g2.device)
+                  for name, b in batches.items()}
+    keys = {"headline": {g.name: _stats(g) for g in core.graphs},
+            **{name: _stats(g) for name, g in kzg_graphs.items()}}
+    bit_equal = {"headline": bls_equal,
+                 **{name: _kzg_replay_checks(kzg, b) for name, b in batches.items()}}
+    walls = {"headline": _walls(lambda: _eager_verify(sets),
+                                lambda: api.verify_signature_sets(sets), "headline")}
+    for name, batch in batches.items():
+        walls[name] = _walls(lambda: _kzg_eager(kzg, *batch),
+                             lambda: kzg.verify_blob_kzg_proof_batch(*batch), f"KZG {name}")
+    traces = {"headline": _replay_trace(lambda: api.verify_signature_sets(sets), core.graphs,
+                                        "headline"),
+              "by_root": _replay_trace(lambda: kzg.verify_blob_kzg_proof_batch(*batches["by_root"]),
+                                       [kzg_graphs["by_root"]], "by_root")}
+    emit({"phase": "graphs", "keys": keys, "bit_equal": bit_equal, "walls": walls,
+          "replay_profile": traces})
+
+
+def phase_warmer(sets):
+    """The port's ShapeWarmer over WARMER_RUNGS, every m of each, with one
+    headline verify run while it warms; one prepare graph captured on this
+    thread to compare; then every graph the process captured, and the warm
+    grid's cost extrapolated from them by kind."""
+    from lighthouse_tpu_torch.beacon_processor.warming import ShapeWarmer, m_menu, synthetic_batch
+    from lighthouse_tpu_torch.crypto.bls import api
+    from lighthouse_tpu_torch.ops import backend
+    from lighthouse_tpu_torch.ops.graphs import rss_bytes
+
+    rss0, reserved0 = rss_bytes(), torch.cuda.memory_reserved()
+    warmer = ShapeWarmer(shapes=WARMER_RUNGS, device=DEVICE)
+    t0 = time.perf_counter()
+    warmer.start()
+    ok, verify_s = _timed_verify(api.verify_signature_sets, sets)
+    rungs_done_at_verify = len(warmer.warmed)
+    warmer.join(timeout=900)
+    warm_s = time.perf_counter() - t0
+    if warmer.failed:
+        raise AssertionError(f"the warmer failed: {warmer.failed}")
+    if warmer.warmed != list(WARMER_RUNGS):
+        raise AssertionError(f"the warmer warmed {warmer.warmed} of {WARMER_RUNGS}")
+    if ok is not True:
+        raise AssertionError("the headline did not verify while the warmer ran")
+    # The same kind of key captured on this thread, in the same state of the
+    # process, to compare with the warmer thread's captures.
+    n, k = MAIN_THREAD_RUNG
+    m = m_menu(n)[0]
+    core = backend.graph_core(n, k, m, True, torch.device(DEVICE))
+    if core.prepare.stats is not None:
+        raise AssertionError(f"{core.prepare.name} was captured before")
+    with core.lock:
+        core(*synthetic_batch(n, k, m, DEVICE)).item()
+    every = [_stats(g) for g in _all_graphs().values()]
+    per_kind = {}
+    for kind, grid_count in GRID_GRAPHS.items():
+        rows = [r for r in every if r["name"].split()[0] == kind]
+        cost = {f: statistics.mean(r[f] for r in rows)
+                for f in ("warmup_s", "capture_s", "instantiate_s", "nodes", "rss_bytes",
+                          "pool_bytes")}
+        per_kind[kind] = {"graphs": len(rows), "mean": cost, "grid_graphs": grid_count}
+    grid = {f: sum(v["mean"][f] * v["grid_graphs"] for v in per_kind.values())
+            for f in ("warmup_s", "capture_s", "instantiate_s", "rss_bytes", "pool_bytes")}
+    emit({"phase": "warmer", "rungs": WARMER_RUNGS, "warm_s": warm_s,
+          "captured": [{"name": n, **st} for n, st in warmer.captured],
+          "headline_during_warm": {"verified": ok, "wall_s": verify_s,
+                                   "rungs_done_when_it_ended": rungs_done_at_verify},
+          "main_thread_capture": _stats(core.prepare),
+          "rss_delta_bytes": rss_bytes() - rss0,
+          "reserved_delta_bytes": torch.cuda.memory_reserved() - reserved0,
+          "every_graph": every, "per_kind": per_kind,
+          "grid_extrapolation": {"graphs": sum(GRID_GRAPHS.values()), **grid,
+                                 "seconds": grid["warmup_s"] + grid["capture_s"]
+                                 + grid["instantiate_s"]},
+          "process_rss_bytes": rss_bytes(),
+          "memory_reserved_bytes": torch.cuda.memory_reserved()})
+
+
+def _summary(kernels, by_shape, launches, shape_errs, launches_kzg, per_verify=None,
+             per_verify_kzg=None):
+    """The kernels line. `launches` counts the main path's first headline
+    verify through the API (which runs each stage eagerly, then captures
+    it), `launches_per_verify` one eager verify, which is what a replay
+    runs; likewise `launches_kzg` and `launches_kzg_per_verify`."""
     from lighthouse_tpu_torch.ops import fused
 
     summary = []
@@ -1065,7 +1375,10 @@ def _summary(kernels, by_shape, launches, shape_errs, launches_kzg):
                         "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
                         "library_ms": None, "n": max(NS),
                         "ms_by_n": {n: v["ms"] for n, v in per_n.items()},
-                        "launches_kzg": {b: v[name] for b, v in launches_kzg.items()}})
+                        "launches_kzg": {b: v[name] for b, v in launches_kzg.items()},
+                        "launches_per_verify": (per_verify or {}).get(name),
+                        "launches_kzg_per_verify": {b: v[name] for b, v in
+                                                    (per_verify_kzg or {}).items()}})
         if name in by_shape:
             summary[-1].update(
                 floor_ms_by_n={n: v["floor_ms"] for n, v in per_n.items()},
@@ -1091,16 +1404,19 @@ def main(argv) -> int:
         print(nvidia_smi("name,power.limit"), flush=True)
         emit({"kernels": _summary(kernels, kernel_by_shape, {}, {}, {})})
         return 0
-    launches, shapes, by_shape, headline = phase_verify()
+    launches, per_verify, shapes, by_shape, headline, sets = phase_verify()
     shape_errs = phase_main_path_shapes(shapes)
     for lib in FLOORED:
         phase_top_shapes(by_shape, lib)
     phase_vectors()
-    launches_kzg, kzg_shapes, kzg_by_root = phase_kzg()
+    launches_kzg, per_verify_kzg, kzg_shapes, kzg_by_root, kzg_state = phase_kzg()
     kzg_errs = phase_main_path_shapes(kzg_shapes, "kzg_shapes", KZG_REQUIRED)
     errs = {k: max(shape_errs[k], kzg_errs.get(k, 0)) for k in shape_errs}
+    phase_warmer(sets)
     phase_profile(headline, kzg_by_root)
-    summary = _summary(kernels, kernel_by_shape, launches, errs, launches_kzg)
+    phase_graphs(sets, kzg_state)
+    summary = _summary(kernels, kernel_by_shape, launches, errs, launches_kzg, per_verify,
+                       per_verify_kzg)
     emit({"phase": "done", "seconds": time.perf_counter() - t0})
     print(nvidia_smi("name,power.limit"), flush=True)
     emit({"kernels": summary})

@@ -22,10 +22,16 @@ Staging pads sets to power-of-two buckets (infinity pubkeys and masked
 sets) and quantizes the distinct-message count to M_BUCKET_SHIFTS, as the
 JAX backend does. There is no small-batch CPU route: every batch runs on
 the device it is given.
+
+Each stage is a CUDA graph per bucket (``ops/graphs.py``), as each is a
+jit per bucket in JAX (``ops/bm/backend.py:234-335``): stage 1 and stage 3
+per m bucket, shared by every (n, k), and stage 2 per (n, k, m,
+all_checked). ``graph_core`` chains them; ``core`` is the eager function
+they capture.
 """
 
 import secrets
-from functools import lru_cache
+from functools import lru_cache, partial
 
 import numpy as np
 import torch
@@ -35,6 +41,7 @@ from ..crypto.bls import curves as _oc
 from ..crypto.bls.constants import P as _P
 from ..crypto.bls.constants import RAND_BITS as _RAND_BITS
 from . import curves as cv
+from . import graphs
 from . import h2c
 from . import limbs as lb
 from . import pairing as pr
@@ -217,10 +224,78 @@ def core(u, inv_idx, row_mask, pk_proj, sig_proj, sig_checked, set_mask, scalars
     return _pairing_check(p_proj, h_unique, s_proj, row_mask, sets_valid)
 
 
+# --- CUDA-graph stages per bucket --------------------------------------------
+#
+# One lock per (m, device) covers the three graphs of every chain with that
+# m: a chain passes stage 1's static outputs to stage 3 after stage 2 has
+# run, and stage 1 and 3 are shared by every (n, k) with that m. Stage 1
+# and 3 of one m share a memory pool, and the stage-2 graphs of one m
+# another: under the lock none of them runs while another does, and a
+# chain reads a graph's outputs before the next graph of its pool replays.
+
+
+def _stage_lock(m_bucket: int, device):
+    return graphs.key_lock(("bls", m_bucket, device))
+
+
+@graphs.cached
+def _stage1_graph(m_bucket: int, device):
+    return graphs.StaticGraph(_h2g2, [((2, 2, lb.L, m_bucket), lb.DTYPE)], device,
+                              f"h2g2 m={m_bucket}", _stage_lock(m_bucket, device),
+                              graphs.pool("bls_h2g2_pairing", m_bucket, device))
+
+
+@graphs.cached
+def _stage3_graph(m_bucket: int, device):
+    specs = [((3, lb.L, m_bucket + 1), lb.DTYPE), ((3, 2, lb.L, m_bucket), lb.DTYPE),
+             ((3, 2, lb.L, 1), lb.DTYPE), ((m_bucket,), torch.bool), ((), torch.bool)]
+    return graphs.StaticGraph(_pairing_check, specs, device, f"pairing m={m_bucket}",
+                              _stage_lock(m_bucket, device),
+                              graphs.pool("bls_h2g2_pairing", m_bucket, device))
+
+
+@graphs.cached
+def _prepare_graph(n_bucket: int, k_bucket: int, m_bucket: int, all_checked: bool, device):
+    n = n_bucket
+    specs = [((k_bucket, 3, lb.L, n), lb.DTYPE), ((3, 2, lb.L, n), lb.DTYPE),
+             ((n,), torch.bool), ((n,), torch.bool), ((n,), torch.int64), ((n,), torch.int64)]
+    return graphs.StaticGraph(partial(_prepare, m_bucket=m_bucket, all_checked=all_checked),
+                              specs, device,
+                              f"prepare n={n} k={k_bucket} m={m_bucket} checked={all_checked}",
+                              _stage_lock(m_bucket, device),
+                              graphs.pool("bls_prepare", m_bucket, device))
+
+
+class GraphCore:
+    """The stage graphs of one (n, k, m, all_checked) bucket, chained as
+    ``core`` chains the stages (``jitted_core``'s counterpart). A call
+    returns the static verdict tensor: read it while holding ``lock``."""
+
+    def __init__(self, n_bucket: int, k_bucket: int, m_bucket: int, all_checked: bool, device):
+        self.h2g2 = _stage1_graph(m_bucket, device)
+        self.prepare = _prepare_graph(n_bucket, k_bucket, m_bucket, all_checked, device)
+        self.pairing = _stage3_graph(m_bucket, device)
+        self.graphs = (self.h2g2, self.prepare, self.pairing)
+        self.lock = self.h2g2.lock
+
+    def __call__(self, u, inv_idx, row_mask, pk_proj, sig_proj, sig_checked, set_mask, scalars):
+        with self.lock:
+            h_unique = self.h2g2(u)
+            p_proj, s_proj, sets_valid = self.prepare(pk_proj, sig_proj, sig_checked, set_mask,
+                                                      scalars, inv_idx)
+            return self.pairing(p_proj, h_unique, s_proj, row_mask, sets_valid)
+
+
+@graphs.cached
+def graph_core(n_bucket: int, k_bucket: int, m_bucket: int, all_checked: bool, device):
+    """The bucket's GraphCore, its graphs on `device`."""
+    return GraphCore(n_bucket, k_bucket, m_bucket, all_checked, torch.device(device))
+
+
 def verify_signature_sets_gpu(sets, device=None) -> bool:
-    """Batch-verify SignatureSets on `device` (default: the card). Host
-    early-outs match the oracle: empty batch, a set without keys, an
-    infinity signature."""
+    """Batch-verify SignatureSets on `device` (default: the card) through
+    the batch's bucket graphs. Host early-outs match the oracle: empty
+    batch, a set without keys, an infinity signature."""
     device = lb.default_device(device)
     sets = list(sets)
     if not sets:
@@ -229,7 +304,10 @@ def verify_signature_sets_gpu(sets, device=None) -> bool:
         if not s.signing_keys or s.signature.point is None:
             return False
     args, m_bucket, all_checked = stage(sets, device)
-    return bool(core(*args, m_bucket=m_bucket, all_checked=all_checked).item())
+    k_bucket, _, _, n_bucket = args[3].shape
+    bucket = graph_core(n_bucket, k_bucket, m_bucket, all_checked, args[0].device)
+    with bucket.lock:
+        return bool(bucket(*args).item())
 
 
 _api.register_backend("gpu", verify_signature_sets_gpu)

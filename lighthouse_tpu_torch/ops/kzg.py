@@ -22,10 +22,12 @@ between them:
        skips it), so a batch of zero blobs verifies
 
 The ladders run on K1 (``mul_many``), the pairing on K2 and K3. Batches
-pad to a power-of-two n_bucket with infinity points and zero scalars.
+pad to a power-of-two n_bucket with infinity points and zero scalars. The
+three stages are one CUDA graph per (n_bucket, nbits) (``_graphed``, the
+counterpart of ``_jitted``), with [tau]G2 among its inputs.
 """
 
-from functools import lru_cache
+from functools import lru_cache, partial
 
 import numpy as np
 import torch
@@ -33,6 +35,7 @@ import torch
 from ..crypto.bls import curves as _oc
 from ..crypto.bls.constants import R as _R
 from . import curves as cv
+from . import graphs
 from . import limbs as lb
 from . import pairing as pr
 from .backend import _next_pow2
@@ -103,19 +106,31 @@ def _pairing_check(sums, g2_tau):
 
 
 def _combine(commit, proof, g2_tau, y_words, z_words, r_words, nbits: int = 256):
-    """The three stages on staged tensors -> () bool tensor."""
+    """The three stages on staged tensors -> (the terms (3, 12, n), the two
+    sums (3, 12, 2), the () bool verdict)."""
     term = _stage_a(commit, proof, y_words, z_words, nbits)
-    return _pairing_check(_stage_b(term, proof, r_words, nbits), g2_tau)
+    sums = _stage_b(term, proof, r_words, nbits)
+    return term, sums, _pairing_check(sums, g2_tau)
+
+
+@graphs.cached
+def _graphed(n_bucket: int, nbits: int, device):
+    pt, words = ((3, lb.L, n_bucket), lb.DTYPE), ((_WORDS, n_bucket), torch.int64)
+    specs = [pt, pt, ((3, 2, lb.L, 1), lb.DTYPE), words, words, words]
+    return graphs.StaticGraph(partial(_combine, nbits=nbits), specs, device,
+                              f"kzg n={n_bucket} nbits={nbits}")
 
 
 def verify_kzg_batch_gpu(commitments, zs, ys, proofs, r: int, g2_tau_aff,
                          nbits: int = 256, device=None) -> bool:
     """Batched e(C - yG1 + zW, -G2) e(W, tau G2) check on `device`
-    (default: the card). Points are oracle affine tuples (None is
-    infinity), scalars Python ints in Fr; `nbits` below 256 is for
-    instances whose scalars are that narrow."""
+    (default: the card) through the batch's bucket graph. Points are oracle
+    affine tuples (None is infinity), scalars Python ints in Fr; `nbits`
+    below 256 is for instances whose scalars are that narrow."""
     device = lb.default_device(device)
     if not commitments:
         return True
     staged = stage(commitments, zs, ys, proofs, r, g2_tau_aff, device)
-    return bool(_combine(*staged, nbits=nbits).item())
+    graph = _graphed(staged[0].shape[-1], nbits, staged[0].device)
+    with graph.lock:
+        return bool(graph(*staged)[-1].item())

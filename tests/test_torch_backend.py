@@ -48,18 +48,36 @@ def _port(sets):
     return [convert.from_jax_signature_set(s) for s in sets]
 
 
-def test_valid_batch_matches_oracle(jax_sets):
+@pytest.fixture(scope="module")
+def bucket():
+    """The bucket graphs that both batches below reach: 3 sets (n_bucket
+    4) of at most 2 keys over 2 messages (m_bucket 4), one signature
+    unchecked."""
+    return backend.graph_core(4, 2, 4, False, torch.device("cpu"))
+
+
+def test_valid_batch_matches_oracle(jax_sets, bucket):
+    calls = bucket.prepare.calls
     assert japi.verify_signature_sets(jax_sets, backend="oracle") is True
     assert api.verify_signature_sets(_port(jax_sets), device="cpu") is True
+    assert bucket.prepare.calls == calls + 1
 
 
-def test_poisoned_shared_message_batch_matches_oracle(jax_sets):
+def test_poisoned_shared_message_batch_matches_oracle(jax_sets, bucket):
     # Set 2 carries set 0's signature: same message, wrong keys.
     bad = list(jax_sets)
     bad[2] = japi.SignatureSet(jax_sets[0].signature, jax_sets[2].signing_keys,
                                jax_sets[2].message)
+    calls, scalars = bucket.prepare.calls, bucket.prepare.inputs[4].clone()
     assert japi.verify_signature_sets(bad, backend="oracle") is False
     assert api.verify_signature_sets(_port(bad), device="cpu") is False
+    # The valid batch's bucket, with this batch's own scalars in its inputs
+    # (3 fresh nonzero draws, then the padding's 1).
+    assert backend.graph_core(4, 2, 4, False, torch.device("cpu")) is bucket
+    assert bucket.prepare.calls == calls + 1 and bucket.h2g2.calls == bucket.pairing.calls
+    fresh = bucket.prepare.inputs[4]
+    assert not torch.equal(fresh, scalars)
+    assert fresh[3] == 1 and bool((fresh[:3] != 0).all())
 
 
 def _off_subgroup_signature():
