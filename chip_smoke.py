@@ -14,18 +14,22 @@ Phases, each printing one JSON line:
             its time (one call replayed from a CUDA graph, and a
             back-to-back wrapper call with its dispatch), the plain
             version's time and its bound. K4's operands carry the edge
-            pairs of _k4_edge_pairs() in their first columns, and K4 is held
+            pairs of _k4_edge_pairs() in their first columns, K5's the edge
+            points of _k5_edge_points() (infinity, P + P, P + (-P), O + O,
+            Z != 1), and K4 is held
             at every edge pair at once at (12, m) and (m, 12, 1), mul_small
             at each k of K4_EDGE_KS (k_edges). K1, K2 and K4 are also timed
             at the paths' heavy operand shapes (K1_SHAPES with KZG's ladder
-            shapes, K2_SHAPES, K4_SHAPES), each beside floor_ms, an empty
-            kernel on its library's grid timed the same way (also at every
-            n).
+            shapes, K2_SHAPES, K4_SHAPES, K5_SHAPES), each beside floor_ms,
+            an empty kernel on its library's grid timed the same way (also
+            at every n).
    wrapper  the host's cost of the parts of one K2 wrapper call (checks,
             output allocation, library lookup, device context, stream,
-            the ctypes launch) and of one K4 call (checks, launch
-            arguments, function lookup, device, stream, the ctypes launch),
-            each timed alone over many calls.
+            the ctypes launch), of one K4 call (checks, launch
+            arguments, function lookup, device, stream, the ctypes launch)
+            and of one K5 call (launch arguments, function lookup, the
+            ctypes launch; whole calls dense, strided and broadcast), each
+            timed alone over many calls.
 3. verify   the main path, batch signature-set verification: 4096 sets x 4
             keys over 64 distinct messages must verify True, first on the
             eager path (ops/backend.core, uncaptured: a watched run records
@@ -44,11 +48,11 @@ Phases, each printing one JSON line:
 4. main_path_shapes
             every kernel against its plain version again, bit for bit, at
             each operand shape the headline verify gave it (stacked rows of
-            Fp2 products, K3 at n = m + 1 pairs and at n = 1; K4 at each
-            operand layout, strides, broadcasts and k included); then the
-            K1, K2 and K4 entries timed at the three shapes with the most
-            launches in that record (k1_shapes, k2_shapes, k4_shapes), with
-            floor_ms.
+            Fp2 products, K3 at n = m + 1 pairs and at n = 1; K4 and K5 at
+            each operand layout, strides, broadcasts and k included); then
+            the K1, K2, K4 and K5 entries timed at the three shapes with
+            the most launches in that record (k1_shapes, k2_shapes,
+            k4_shapes, k5_shapes), with floor_ms.
 5. vectors  every verify / fast_aggregate_verify / batch_verify case under
             tests/vectors/general/phase0/bls/*/small must give its output.
 6. kzg      the second path, Deneb's verify_blob_kzg_proof_batch
@@ -78,8 +82,8 @@ Phases, each printing one JSON line:
             the 67-graph warm grid's cost extrapolated per kind.
 8. profile  torch.profiler over one call of each unit (fp_add, fp_sub,
             fp_neg and fp_mul_small on equal shapes, fp_add broadcast and
-            strided: one CUDA kernel each, or the phase fails; G1/G2 add
-            and double, the Miller doubling and addition steps), over each
+            strided, G1/G2 add and double: one CUDA kernel each, or the
+            phase fails; the Miller doubling and addition steps), over each
             device stage of the headline and by_root verifies (a stage's
             kernels are the nodes a CUDA graph of it would hold), then over
             one warm eager headline verify and one warm by_root KZG verify:
@@ -155,11 +159,21 @@ K1_SHAPES = ((12, 1), (3, 2, 12, 65), (4, 12, 4096), (6, 12, 4096),
 # of the headline's code at n = 128: (2, 12, n), (12, n), (2, 12, m + 1)),
 # at the headline's n = 4096 and m = 64, and its largest, (6, 12, 4096).
 K4_SHAPES = ((2, 12, 64), (2, 12, 65), (12, 4096), (2, 12, 4096), (6, 12, 4096))
+# K5's operand shapes on the paths, per entry: G1 in the headline's ladder
+# and key tree (n = 4096) and KZG's ladders (16 and 512 lanes); G2 in h2g2's
+# cofactor clearing (m = 64), the pairing's addition steps (m + 1 = 65) and
+# the signature ladder (4096).
+K5 = ("g1_add", "g1_double", "g2_add", "g2_double")
+K5_SHAPES = {"g1_add": ((3, 12, 16), (3, 12, 512), (3, 12, 4096), (2, 3, 12, 4096)),
+             "g1_double": ((3, 12, 16), (3, 12, 512), (3, 12, 4096)),
+             "g2_add": ((3, 2, 12, 64), (3, 2, 12, 65), (3, 2, 12, 4096)),
+             "g2_double": ((3, 2, 12, 64), (3, 2, 12, 4096))}
 # Libraries timed at main-path shapes beside an empty kernel on their grid:
-# library -> (empty entry point, shapes, phase tag).
+# library -> (empty entry point, shapes (or shapes per entry), phase tag).
 FLOORED = {"fp_mul": ("lh_fp_empty", K1_SHAPES, "k1"),
            "fp2_mul": ("lh_fp2_empty", K2_SHAPES, "k2"),
-           "fp_add": ("lh_fp_add_empty", K4_SHAPES, "k4")}
+           "fp_add": ("lh_fp_add_empty", K4_SHAPES, "k4"),
+           "curve_op": ("lh_curve_empty", K5_SHAPES, "k5")}
 HEADLINE = dict(n_sets=4096, keys=4, distinct=64)
 # KZG batches, one RPC response each: BlobsByRoot for one block
 # (MAX_BLOBS_PER_BLOCK = 6) and BlobsByRange for one epoch of full blocks
@@ -167,13 +181,13 @@ HEADLINE = dict(n_sets=4096, keys=4, distinct=64)
 # EPOCHS_PER_BATCH = 1). A blob is 4096 field elements.
 KZG_BATCHES = {"by_root": 6, "by_range": 192}
 KZG_ELEMENTS = 4096
-# Kernels the KZG path cannot run without: the G1 ladders' Fp products, the
-# Miller loop's and the final exponentiation's Fp2 and Fp12 products.
-# Kernels the KZG path cannot run without: the G1 ladders' Fp products and
-# modular additions, the Miller loop's and the final exponentiation's Fp2
-# and Fp12 products.
+# Kernels the KZG path cannot run without: the G1 ladders' group law and
+# Fp products, the modular additions, the Miller loop's Fp2 products and
+# G2 additions, and the final exponentiation's Fp12 products (no G2
+# doubling: the Miller doubling step is its own formula).
 K4 = ("fp_add", "fp_sub", "fp_neg", "fp_mul_small")
-KZG_REQUIRED = ("fp_mul", "fp2_mul", "fp12_sqr", "fp12_mul", "fp12_line") + K4
+KZG_REQUIRED = (("fp_mul", "fp2_mul", "fp12_sqr", "fp12_mul", "fp12_line") + K4
+                + ("g1_add", "g1_double", "g2_add"))
 K4_EDGE_KS = (1, 3, 4, 8, 12, 65535)     # mul_small's k at the edge pairs
 K4_TIMED_K = 12     # the main path's largest k: three doublings and an add
 
@@ -204,6 +218,15 @@ WORK = {
     # and mul_small read one.
     "fp_add": (0, 3 * 48), "fp_sub": (0, 3 * 48), "fp_neg": (0, 2 * 48),
     "fp_mul_small": (0, 2 * 48),
+    # K5, per point, as its schedule (ops/fused.py k5_schedule) needs them:
+    # G1 add 12 Fp products and 9 reductions, G1 double 8 products (two of
+    # them squares) and 7, G2 add 36 (six Fp2 products of three, twice) and
+    # 18, G2 double 22 (its Fp2 squares of two) and 14; a G1 point is 144
+    # bytes, a G2 point 288, two read and one written (double one and one).
+    "g1_add": (12 * FP_PROD + 9 * REDC, 3 * 144),
+    "g1_double": (2 * FP_SQR + 6 * FP_PROD + 7 * REDC, 2 * 144),
+    "g2_add": (36 * FP_PROD + 18 * REDC, 3 * 288),
+    "g2_double": (22 * FP_PROD + 14 * REDC, 2 * 288),
 }
 SOURCES = {
     "fp_mul": ("lighthouse_tpu_torch/ops/csrc/fp_mul.cu",
@@ -215,6 +238,9 @@ SOURCES = {
     "fp_add": ("lighthouse_tpu_torch/ops/csrc/fp_add.cu",
                "none (no pallas_call): lighthouse_tpu/ops/bm/limbs.py:343 add, :347 sub, "
                ":351 neg, fused by XLA"),
+    "curve_op": ("lighthouse_tpu_torch/ops/csrc/curve_op.cu",
+                 "none (no pallas_call): lighthouse_tpu/ops/bm/curves.py:100 add, :122 double, "
+                 "fused by XLA"),
 }
 
 
@@ -319,6 +345,44 @@ def _k4_edge_pairs():
     return tuple((a, b) for a in edges for b in edges) + ((1, P - 1), (1, P - 2), (P - 1, 1))
 
 
+def _k5_edge_points(group):
+    """K5's edge operands as projective integer coordinates (G2's as pairs),
+    (P, Q) per column: every pair of O, G, 2G, -G (and [12345]G on G1), once
+    with Z = 1 and once with other Zs (infinity as (0 : Z : 0)), so that
+    O + O, O + P, P + P with equal and unequal Zs, P + (-P) and Z != 1 all
+    occur; a doubling takes P."""
+    from lighthouse_tpu_torch.crypto.bls import curves as oc
+    from lighthouse_tpu_torch.crypto.bls import fields as ff
+    from lighthouse_tpu_torch.crypto.bls.constants import P
+
+    if group == "G1":
+        def proj(pt, z):
+            return (0, z, 0) if pt is None else (pt[0] * z % P, pt[1] * z % P, z)
+
+        gen = oc.G1_GEN
+        pts = [None, gen, oc.g1_mul(gen, 2), oc.g1_neg(gen), oc.g1_mul(gen, 12345)]
+        zs = ((1, 1), (7, P - 3))
+    else:
+        def proj(pt, z):
+            return ((0, 0), z, (0, 0)) if pt is None else (ff.fp2_mul(pt[0], z),
+                                                           ff.fp2_mul(pt[1], z), z)
+
+        gen = oc.G2_GEN
+        pts = [None, gen, oc.g2_mul(gen, 2), oc.g2_neg(gen)]
+        zs = (((1, 0), (1, 0)), ((5, 9), (P - 2, 3)))
+    return [(proj(a, za), proj(b, zb)) for a in pts for b in pts for za, zb in zs]
+
+
+def _point_limbs(points, group):
+    """Projective integer points -> (3, 12, m) or (3, 2, 12, m) Montgomery
+    limbs on the card."""
+    from lighthouse_tpu_torch.ops import limbs as lb
+    from lighthouse_tpu_torch.ops import tower as tw
+
+    make = lb.ints_to_limbs if group == "G1" else tw.fp2_from_int_pairs
+    return torch.stack([make([pt[i] for pt in points], DEVICE) for i in range(3)])
+
+
 def _raw_limbs(vals):
     """Stored integers below p -> (12, m) int32 limbs on the card."""
     words = [[(v >> (32 * i)) & 0xFFFFFFFF for i in range(12)] for v in vals]
@@ -328,12 +392,17 @@ def _raw_limbs(vals):
 
 def _operands(name, shapes, gen):
     """Random operands of `name` at `shapes`; K4's first columns hold its
-    edge pairs (as many as fit)."""
+    edge pairs, K5's its edge points (as many as fit)."""
     xs = [_rand_fp(tuple(shape), gen) for shape in shapes]
     if name in K4:
         pairs = _k4_edge_pairs()[:shapes[0][-1]]
         for x, vals in zip(xs, zip(*pairs)):
             x[..., :len(vals)] = _raw_limbs(vals)
+    if name in K5:
+        group = name[:2].upper()
+        pairs = _k5_edge_points(group)[:shapes[0][-1]]
+        for x, pts in zip(xs, zip(*pairs)):
+            x[..., :len(pts)] = _point_limbs(pts, group)
     return xs
 
 
@@ -384,10 +453,10 @@ def _k4_edges():
     return err
 
 
-def _floor(lib, shape):
+def _floor(lib, shape, kind):
     """Graph-replay and call ms of an empty kernel on library `lib`'s grid
-    for an operand shape (..., 12, n) of its kernels; None where the
-    library has none."""
+    for an operand shape of its kernels, of operand kind `kind` (its tail
+    fused._TAIL[kind] + (n,)); None where the library has none."""
     import ctypes
 
     from lighthouse_tpu_torch.ops import _build, fused
@@ -397,7 +466,6 @@ def _floor(lib, shape):
         return None, None
     fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    kind = next(kinds[0] for name, kinds in _entries(lib))
     rows = math.prod(shape[:-len(fused._TAIL[kind]) - 1])
 
     def call():
@@ -433,7 +501,7 @@ def _entries(lib):
 
 
 def _time_shapes(name, shapes, gen):
-    """Kernel `name` (K1, K2 or K4) at each operand shape, with its
+    """Kernel `name` (K1, K2, K4 or K5) at each operand shape, with its
     library's floor_ms."""
     from lighthouse_tpu_torch.ops import fused
 
@@ -441,7 +509,7 @@ def _time_shapes(name, shapes, gen):
     per = {}
     for shape in shapes:
         row = _timed(name, [tuple(shape)] * len(kinds), gen)
-        row["floor_ms"], row["floor_call_ms"] = _floor(lib, tuple(shape))
+        row["floor_ms"], row["floor_call_ms"] = _floor(lib, tuple(shape), kinds[0])
         per[str(tuple(shape))] = row
     return per
 
@@ -456,7 +524,8 @@ def phase_kernels():
         per_n = {n: _timed(name, [fused._TAIL[k] + (n,) for k in kinds], gen) for n in NS}
         if lib in FLOORED:
             for n, row in per_n.items():
-                row["floor_ms"], row["floor_call_ms"] = _floor(lib, fused._TAIL[kinds[0]] + (n,))
+                row["floor_ms"], row["floor_call_ms"] = _floor(
+                    lib, fused._TAIL[kinds[0]] + (n,), kinds[0])
         results[name] = per_n
         emit({"phase": "kernels", "kernel": name, "tolerance": 0, "by_n": per_n,
               "library_ms": None, **({"k": K4_TIMED_K} if name == "fp_mul_small" else {})})
@@ -464,8 +533,12 @@ def phase_kernels():
     emit({"phase": "kernels", "k4_edges": {"pairs": len(_k4_edge_pairs()), "ks": K4_EDGE_KS,
                                           "tolerance": 0, "mismatches": 0,
                                           "max_abs_err": k4_err}})
-    by_shape = {name: _time_shapes(name, FLOORED[lib][1], gen)
-                for lib in FLOORED for name, _ in _entries(lib)}
+    by_shape = {}
+    for lib in FLOORED:
+        for name, _ in _entries(lib):
+            shapes = FLOORED[lib][1]
+            by_shape[name] = _time_shapes(name, shapes[name] if isinstance(shapes, dict)
+                                          else shapes, gen)
     for name, per in by_shape.items():
         emit({"phase": "kernels", "kernel": name, "tolerance": 0, "by_shape": per})
     fused.reset_launches()      # the comparison launches do not count
@@ -517,7 +590,7 @@ def phase_wrapper():
     emit({"phase": "wrapper", "kernel": "fp2_mul", "shape": [2, 12, 64],
           "host_us": {k: _host_us(f) for k, f in parts.items()}})
 
-    k4_fn = fused._k4_fn("fp_add")
+    k4_fn = fused._kernel_fn("fp_add")
     k4_out, _, k4_args = fused._k4_args("fp_add", (a, b), 0)     # k4_out lives over the launches
     fp2 = _rand_fp((3, 2, 12, 64), gen)
     x0, x1 = fp2[..., 0, :, :], fp2[..., 1, :, :]
@@ -527,7 +600,7 @@ def phase_wrapper():
         "check": lambda: fused._check_additive("fp_add", (a, b), 0),
         "launch_args": lambda: fused._k4_args("fp_add", (a, b), 0),
         "launch_args_strided": lambda: fused._k4_args("fp_add", (x0, x1), 0),
-        "function_lookup": lambda: fused._k4_fn("fp_add"),
+        "function_lookup": lambda: fused._kernel_fn("fp_add"),
         "current_device": torch.cuda.current_device,
         "raw_stream": lambda: torch._C._cuda_getCurrentRawStream(a.device.index),
         "ctypes_launch": lambda: k4_fn(*k4_args, stream),
@@ -538,13 +611,33 @@ def phase_wrapper():
     }
     emit({"phase": "wrapper", "kernel": "fp_add", "shape": [2, 12, 64],
           "host_us": {k: _host_us(f) for k, f in k4_parts.items()}})
+
+    g2 = _rand_fp((3, 2, 12, 64), gen)
+    g1 = _rand_fp((3, 12, 65), gen)
+    col = _rand_fp((3, 12, 1), gen).expand(3, 12, 64)
+    k5_fn = fused._kernel_fn("g2_add")
+    k5_out, _, k5_args = fused._k5_args("g2_add", (g2, g2))   # k5_out lives over the launches
+    k5_parts = {
+        "launch_args": lambda: fused._k5_args("g2_add", (g2, g2)),
+        "launch_args_strided": lambda: fused._k5_args("g1_add", (g1[..., :-1], g1[..., 1:])),
+        "function_lookup": lambda: fused._kernel_fn("g2_add"),
+        "ctypes_launch": lambda: k5_fn(*k5_args, stream),
+        "whole_call": lambda: fused.g2_add(g2, g2),
+        "whole_call_double": lambda: fused.g2_double(g2),
+        "whole_call_strided": lambda: fused.g1_add(g1[..., :-1], g1[..., 1:]),
+        "whole_call_broadcast": lambda: fused.g1_add(g1[..., :-1], col),
+    }
+    # 500 calls: K5 runs 7-18 us a call on the card, and 5000 back to back
+    # would fill the launch queue and time the card instead of the host.
+    emit({"phase": "wrapper", "kernel": "g2_add", "shape": [3, 2, 12, 64],
+          "host_us": {k: _host_us(f, 500) for k, f in k5_parts.items()}})
     fused.reset_launches()
 
 
 def phase_main_path_shapes(shapes, phase="main_path_shapes", required=None):
     """Every kernel against its plain version at each operand shape a path
-    gave it (stacked leading rows included; K4 at each operand layout, its
-    strides, broadcasts and k), tolerance 0. Each kernel in `required`
+    gave it (stacked leading rows included; K4 and K5 at each operand
+    layout, its strides, broadcasts and k), tolerance 0. Each kernel in `required`
     (default: all) must have a recorded shape; the others are held at
     theirs, if any."""
     from lighthouse_tpu_torch.ops import fused
@@ -558,7 +651,7 @@ def phase_main_path_shapes(shapes, phase="main_path_shapes", required=None):
             if name in required:
                 raise AssertionError(f"no {phase} recorded for {name}")
             continue
-        if name in K4:
+        if name in K4 + K5:
             err = 0
             for layout, k in sorted(shapes[name]):
                 xs = [_rand_fp(sh, gen, st) for sh, st in layout]
@@ -628,12 +721,14 @@ def _main_path_runs(verify, eager, what, required=None):
     return launches, first_s, wall_s
 
 
-def _timed_verify(verify, *args):
-    """verify(*args) -> (its verdict, wall seconds, synchronised)."""
-    torch.cuda.synchronize()
+def _timed_verify(verify, *args, sync=None):
+    """verify(*args) -> (its verdict, wall seconds, synchronised: by `sync`,
+    default the whole device)."""
+    sync = sync or torch.cuda.synchronize
+    sync()
     t0 = time.perf_counter()
     ok = verify(*args)
-    torch.cuda.synchronize()
+    sync()
     return ok, time.perf_counter() - t0
 
 
@@ -674,15 +769,16 @@ def _stage_seconds(stages, what):
 def _watched(fn):
     """fn() with every kernel call's operand shapes recorded -> (its result,
     {kernel: set of operand shapes}, {kernel: {operand n: calls}},
-    {kernel: {first operand's shape: calls}}). K4's record is of operand
-    layouts, ((shape, strides) per operand, k), and its by_n also counts
-    mul_small's calls per k under ("k", k)."""
+    {kernel: {first operand's shape: calls}}). K4's and K5's records are of
+    operand layouts, ((shape, strides) per operand, k) (k = 0 but for
+    mul_small), and K4's by_n also counts mul_small's calls per k under
+    ("k", k)."""
     from lighthouse_tpu_torch.ops import fused
 
     shapes = {name: set() for name in fused.launches}
     by_n = {name: {} for name in fused.launches}
     by_shape = {name: {} for name in fused.launches}
-    run, run_additive = fused._run, fused._run_additive
+    run, run_additive, run_curve = fused._run, fused._run_additive, fused._run_curve
 
     def count(name, xs):
         n = xs[0].shape[-1]
@@ -702,11 +798,16 @@ def _watched(fn):
             by_n[name][("k", k)] = by_n[name].get(("k", k), 0) + 1
         return run_additive(name, xs, k)
 
-    fused._run, fused._run_additive = watch, watch_additive
+    def watch_curve(name, xs):
+        shapes[name].add((tuple((tuple(x.shape), tuple(x.stride())) for x in xs), 0))
+        count(name, xs)
+        return run_curve(name, xs)
+
+    fused._run, fused._run_additive, fused._run_curve = watch, watch_additive, watch_curve
     try:
         out = fn()
     finally:
-        fused._run, fused._run_additive = run, run_additive
+        fused._run, fused._run_additive, fused._run_curve = run, run_additive, run_curve
     return out, shapes, by_n, by_shape
 
 
@@ -795,9 +896,9 @@ def phase_verify():
 
 
 def phase_top_shapes(by_shape, lib):
-    """The entries of library `lib` (K1, K2 or K4) timed at the three operand
-    shapes with the most launches in the headline verify's record (phase
-    k1_shapes, k2_shapes or k4_shapes)."""
+    """The entries of library `lib` (K1, K2, K4 or K5) timed at the three
+    operand shapes with the most launches in the headline verify's record
+    (phase k1_shapes, k2_shapes, k4_shapes or k5_shapes)."""
     from lighthouse_tpu_torch.ops import fused
 
     gen = torch.Generator(device="cuda")
@@ -1018,7 +1119,7 @@ def phase_kzg():
 
 # The port's own kernels in a trace (csrc/*.cu, each in an anonymous
 # namespace): matched against the wrapper's launch counts.
-PORT_KERNEL = re.compile(r"^void \(anonymous namespace\)::fp(_add|_mul|2|12)_kernel")
+PORT_KERNEL = re.compile(r"^void \(anonymous namespace\)::(fp(_add|_mul|2|12)|curve)_kernel")
 
 
 def _trace(fn):
@@ -1115,7 +1216,7 @@ def phase_profile(headline, kzg_by_root):
         _, tr, launched = _profiled(fn)
         per_unit[name] = {"kernels": tr["kernels"], "wrapper_launches": sum(launched.values()),
                           "busy_ms": tr["busy_ms"]}
-    for name in ("fp_add", "fp_sub", "fp_add_broadcast", "fp_add_strided"):
+    for name in ("fp_add", "fp_sub", "fp_add_broadcast", "fp_add_strided") + K5:
         if per_unit[name]["kernels"] != 1:
             raise AssertionError(f"{name} ran {per_unit[name]['kernels']} CUDA kernels, not 1")
     per_stage = {}
@@ -1311,7 +1412,10 @@ def phase_warmer(sets):
     warmer = ShapeWarmer(shapes=WARMER_RUNGS, device=DEVICE)
     t0 = time.perf_counter()
     warmer.start()
-    ok, verify_s = _timed_verify(api.verify_signature_sets, sets)
+    # While the warmer's thread captures, CUDA refuses a synchronise of the
+    # whole device: this thread waits for its own stream only.
+    ok, verify_s = _timed_verify(api.verify_signature_sets, sets,
+                                 sync=lambda: torch.cuda.current_stream().synchronize())
     rungs_done_at_verify = len(warmer.warmed)
     warmer.join(timeout=900)
     warm_s = time.perf_counter() - t0

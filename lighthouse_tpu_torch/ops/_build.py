@@ -20,7 +20,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-SOURCES = ("fp_mul", "fp2_mul", "fp12_op", "fp_add")
+SOURCES = ("fp_mul", "fp2_mul", "fp12_op", "fp_add", "curve_op")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ["-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -34,11 +34,11 @@ def _sig(n_ptr: int, n_int: int = 2) -> list:
 
 
 # C entry points per library: name -> argument types. Most take (output,
-# inputs..., rows, n, stream); K4's take (output, inputs..., rows, n, [k,]
-# geometry, stream), the geometry a pointer to int64 strides or null
-# (csrc/fp_add.cu). lh_fp_empty, lh_fp2_empty and
-# lh_fp_add_empty launch an empty kernel on K1's, K2's and K4's grid:
-# chip_smoke.py's floor.
+# inputs..., rows, n, stream); K4's and K5's take (output, inputs..., rows,
+# n, [k,] geometry, stream), the geometry a pointer to int64 strides or null
+# (csrc/fp_add.cu, csrc/curve_op.cu). lh_fp_empty, lh_fp2_empty,
+# lh_fp_add_empty and lh_curve_empty launch an empty kernel on K1's, K2's,
+# K4's and K5's grid: chip_smoke.py's floor.
 ENTRY_POINTS = {
     "fp_mul": {"lh_fp_mul": _sig(3), "lh_fp_sqr": _sig(2), "lh_fp_empty": _sig(1)},
     "fp2_mul": {"lh_fp2_mul": _sig(3), "lh_fp2_sqr": _sig(2), "lh_fp2_empty": _sig(1)},
@@ -46,6 +46,9 @@ ENTRY_POINTS = {
     "fp_add": {"lh_fp_add": _sig(3) + [_PTR], "lh_fp_sub": _sig(3) + [_PTR],
                "lh_fp_neg": _sig(2) + [_PTR], "lh_fp_mul_small": _sig(2, 3) + [_PTR],
                "lh_fp_add_empty": _sig(1)},
+    "curve_op": {"lh_g1_add": _sig(3) + [_PTR], "lh_g1_dbl": _sig(2) + [_PTR],
+                 "lh_g2_add": _sig(3) + [_PTR], "lh_g2_dbl": _sig(2) + [_PTR],
+                 "lh_curve_empty": _sig(1)},
 }
 
 _LIBS: dict = {}
@@ -57,8 +60,14 @@ def _k3_plan_header() -> str:
     return fused.k3_plan_header()
 
 
+def _k5_plan_header() -> str:
+    from . import fused
+    return fused.k5_plan_header()
+
+
 # Headers generated from Python per source: name -> {file name: text maker}.
-GENERATED = {"fp12_op": {"k3_plan.h": _k3_plan_header}}
+GENERATED = {"fp12_op": {"k3_plan.h": _k3_plan_header},
+             "curve_op": {"curve_plan.h": _k5_plan_header}}
 
 
 def nvcc() -> str:

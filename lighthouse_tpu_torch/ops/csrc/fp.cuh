@@ -114,4 +114,111 @@ __device__ __forceinline__ void redc(uint32_t* t, uint32_t* out) {
   for (int s = 0; s < NSUB; ++s) cond_sub_p(out);
 }
 
+// --- p as immediates: K1's reduction and K4's modular chains, shared with K5
+// (csrc/curve_op.cu)
+
+// Limb j of p as an immediate: a __constant__ array goes through the
+// constant cache, which misses on a launch's first use.
+__host__ __device__ constexpr uint32_t p_limb(int j) {
+  return j == 0 ? 0xffffaaabu
+       : j == 1 ? 0xb9feffffu
+       : j == 2 ? 0xb153ffffu
+       : j == 3 ? 0x1eabfffeu
+       : j == 4 ? 0xf6b0f624u
+       : j == 5 ? 0x6730d2a0u
+       : j == 6 ? 0xf38512bfu
+       : j == 7 ? 0x64774b84u
+       : j == 8 ? 0x434bacd7u
+       : j == 9 ? 0x4b1ba7b6u
+       : j == 10 ? 0x397fe69au
+       : 0x1a0111eau;
+}
+
+// out = t 2^-384 mod p, canonical, for 0 <= t < p 2^384 (t is clobbered):
+// redc's rows with p's limbs as immediates, then u - p beside u and the
+// choice by its sign (u < t / 2^384 + p < 2p).
+__device__ __forceinline__ void redc_imm(uint32_t* t, uint32_t* out) {
+  uint32_t ec = 0;
+#pragma unroll
+  for (int i = 0; i < NL; ++i) {
+    const uint32_t m = t[i] * kN0;
+    uint64_t c = 0;
+#pragma unroll
+    for (int j = 0; j < NL; ++j) {
+      c += (uint64_t)m * p_limb(j) + t[i + j];
+      t[i + j] = (uint32_t)c;
+      c >>= 32;
+    }
+    const uint64_t s = (uint64_t)t[i + NL] + c + ec;
+    t[i + NL] = (uint32_t)s;
+    ec = (uint32_t)(s >> 32);
+  }
+  uint32_t d[NL];
+  long long br = 0;   // signed borrow, arithmetic shift: -1 at the end iff u < p
+#pragma unroll
+  for (int j = 0; j < NL; ++j) {
+    br += (long long)t[NL + j] - p_limb(j);
+    d[j] = (uint32_t)br;
+    br >>= 32;
+  }
+#pragma unroll
+  for (int j = 0; j < NL; ++j) out[j] = br < 0 ? t[NL + j] : d[j];
+}
+
+// out = a + b mod p for canonical a, b; out may alias a or b.
+__device__ __forceinline__ void add_mod(const uint32_t* a, const uint32_t* b, uint32_t* out) {
+  uint32_t s[NL], d[NL];
+  uint64_t c = 0;
+#pragma unroll
+  for (int j = 0; j < NL; ++j) {
+    c += (uint64_t)a[j] + b[j];
+    s[j] = (uint32_t)c;
+    c >>= 32;
+  }
+  long long br = 0;   // signed borrow, arithmetic shift: -1 at the end iff s < p
+#pragma unroll
+  for (int j = 0; j < NL; ++j) {
+    br += (long long)s[j] - p_limb(j);
+    d[j] = (uint32_t)br;
+    br >>= 32;
+  }
+#pragma unroll
+  for (int j = 0; j < NL; ++j) out[j] = br < 0 ? s[j] : d[j];
+}
+
+// out = a - b mod p; out may alias a or b.
+__device__ __forceinline__ void sub_mod(const uint32_t* a, const uint32_t* b, uint32_t* out) {
+  uint32_t d[NL];
+  long long br = 0;
+#pragma unroll
+  for (int j = 0; j < NL; ++j) {
+    br += (long long)a[j] - b[j];
+    d[j] = (uint32_t)br;
+    br >>= 32;
+  }
+  const uint32_t mask = (uint32_t)br;   // all ones iff a < b
+  uint64_t c = 0;
+#pragma unroll
+  for (int j = 0; j < NL; ++j) {
+    c += (uint64_t)d[j] + (p_limb(j) & mask);
+    out[j] = (uint32_t)c;
+    c >>= 32;
+  }
+}
+
+// out = -a mod p: p - a, or 0 for 0.
+__device__ __forceinline__ void neg_mod(const uint32_t* a, uint32_t* out) {
+  uint32_t any = 0;
+#pragma unroll
+  for (int j = 0; j < NL; ++j) any |= a[j];
+  const uint32_t mask = any ? 0xffffffffu : 0u;
+  long long br = 0;
+#pragma unroll
+  for (int j = 0; j < NL; ++j) {
+    br += (long long)(p_limb(j) & mask) - a[j];
+    out[j] = (uint32_t)br;
+    br >>= 32;
+  }
+}
+
 }  // namespace lh

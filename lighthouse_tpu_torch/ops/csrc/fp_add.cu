@@ -20,7 +20,8 @@
 //   neg        (p & nonzero mask) - a;
 //   mul_small  left-to-right double-and-add over k's bits, each step an
 //              add above, so every intermediate value stays in [0, p).
-// p's limbs are immediates, as in K1 (csrc/fp_mul.cu).
+// p's limbs are immediates, as in K1; the chains are lh::add_mod, sub_mod
+// and neg_mod (fp.cuh), which K5 (csrc/curve_op.cu) shares.
 //
 // Operands may be strided views and may broadcast: each input carries its
 // element strides (Geom) over the output's rows, which the wrapper
@@ -42,85 +43,14 @@ constexpr int kBlock = 128;   // elements per block
 
 enum Op { kAdd, kSub, kNeg, kMulSmall };
 
-// Limb j of p as an immediate.
-__host__ __device__ constexpr uint32_t p_limb(int j) {
-  return j == 0 ? 0xffffaaabu
-       : j == 1 ? 0xb9feffffu
-       : j == 2 ? 0xb153ffffu
-       : j == 3 ? 0x1eabfffeu
-       : j == 4 ? 0xf6b0f624u
-       : j == 5 ? 0x6730d2a0u
-       : j == 6 ? 0xf38512bfu
-       : j == 7 ? 0x64774b84u
-       : j == 8 ? 0x434bacd7u
-       : j == 9 ? 0x4b1ba7b6u
-       : j == 10 ? 0x397fe69au
-       : 0x1a0111eau;
-}
-
-// out = a + b mod p; out may alias a or b.
-__device__ __forceinline__ void add_mod(const uint32_t* a, const uint32_t* b, uint32_t* out) {
-  uint32_t s[lh::NL], d[lh::NL];
-  uint64_t c = 0;
-#pragma unroll
-  for (int j = 0; j < lh::NL; ++j) {
-    c += (uint64_t)a[j] + b[j];
-    s[j] = (uint32_t)c;
-    c >>= 32;
-  }
-  long long br = 0;   // signed borrow, arithmetic shift: -1 at the end iff s < p
-#pragma unroll
-  for (int j = 0; j < lh::NL; ++j) {
-    br += (long long)s[j] - p_limb(j);
-    d[j] = (uint32_t)br;
-    br >>= 32;
-  }
-#pragma unroll
-  for (int j = 0; j < lh::NL; ++j) out[j] = br < 0 ? s[j] : d[j];
-}
-
-// out = a - b mod p.
-__device__ __forceinline__ void sub_mod(const uint32_t* a, const uint32_t* b, uint32_t* out) {
-  uint32_t d[lh::NL];
-  long long br = 0;
-#pragma unroll
-  for (int j = 0; j < lh::NL; ++j) {
-    br += (long long)a[j] - b[j];
-    d[j] = (uint32_t)br;
-    br >>= 32;
-  }
-  const uint32_t mask = (uint32_t)br;   // all ones iff a < b
-  uint64_t c = 0;
-#pragma unroll
-  for (int j = 0; j < lh::NL; ++j) {
-    c += (uint64_t)d[j] + (p_limb(j) & mask);
-    out[j] = (uint32_t)c;
-    c >>= 32;
-  }
-}
-
-// out = -a mod p: p - a, or 0 for 0.
-__device__ __forceinline__ void neg_mod(const uint32_t* a, uint32_t* out) {
-  uint32_t any = 0;
-#pragma unroll
-  for (int j = 0; j < lh::NL; ++j) any |= a[j];
-  const uint32_t mask = any ? 0xffffffffu : 0u;
-  long long br = 0;
-#pragma unroll
-  for (int j = 0; j < lh::NL; ++j) {
-    br += (long long)(p_limb(j) & mask) - a[j];
-    out[j] = (uint32_t)br;
-    br >>= 32;
-  }
-}
-
-// out = k a mod p for 1 <= k < 2^16, left to right over k's bits.
+// out = k a mod p for 1 <= k < 2^16, left to right over k's bits; out must
+// not alias a.
 __device__ __forceinline__ void mul_small_mod(const uint32_t* a, uint32_t k, uint32_t* out) {
 #pragma unroll
   for (int j = 0; j < lh::NL; ++j) out[j] = a[j];
   for (int bit = 30 - __clz(k); bit >= 0; --bit) {
-    add_mod(out, out, out);
-    if ((k >> bit) & 1u) add_mod(out, a, out);
+    lh::add_mod(out, out, out);
+    if ((k >> bit) & 1u) lh::add_mod(out, a, out);
   }
 }
 
@@ -155,9 +85,9 @@ fp_add_kernel(uint32_t* __restrict__ out, const uint32_t* __restrict__ a,
 #pragma unroll
     for (int l = 0; l < lh::NL; ++l) y[l] = pb[l * gb.sl];
   }
-  if (OP == kAdd) add_mod(x, y, z);
-  if (OP == kSub) sub_mod(x, y, z);
-  if (OP == kNeg) neg_mod(x, z);
+  if (OP == kAdd) lh::add_mod(x, y, z);
+  if (OP == kSub) lh::sub_mod(x, y, z);
+  if (OP == kNeg) lh::neg_mod(x, z);
   if (OP == kMulSmall) mul_small_mod(x, k, z);
   uint32_t* po = out + (long long)row * (lh::NL * (long long)g.n) + j;
 #pragma unroll

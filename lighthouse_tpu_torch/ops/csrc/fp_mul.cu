@@ -16,7 +16,8 @@
 //   then     Montgomery REDC (12 rows of 12 multiply-adds, the quotient of
 //            row i being t_i (-p^-1) mod 2^32), and u - p by a signed borrow
 //            chain beside u, the canonical value chosen by its sign.
-// p's limbs are immediates in the instructions (p_limb): a __constant__
+// p's limbs are immediates in the instructions (lh::p_limb, lh::redc_imm in
+// fp.cuh, shared with K4 and K5): a __constant__
 // array goes through the constant cache, which misses on a launch's first
 // use. The element's row r = g / n is a multiply-high by a magic number
 // (PyTorch's IntDivider, exact for g, n < 2^31), and limb l's offset l n is
@@ -59,22 +60,6 @@ namespace {
 
 constexpr int kLanes = 32;   // elements per block
 
-// Limb j of p as an immediate.
-__host__ __device__ constexpr uint32_t p_limb(int j) {
-  return j == 0 ? 0xffffaaabu
-       : j == 1 ? 0xb9feffffu
-       : j == 2 ? 0xb153ffffu
-       : j == 3 ? 0x1eabfffeu
-       : j == 4 ? 0xf6b0f624u
-       : j == 5 ? 0x6730d2a0u
-       : j == 6 ? 0xf38512bfu
-       : j == 7 ? 0x64774b84u
-       : j == 8 ? 0x434bacd7u
-       : j == 9 ? 0x4b1ba7b6u
-       : j == 10 ? 0x397fe69au
-       : 0x1a0111eau;
-}
-
 // t = a^2 (24 limbs): the triangle O = sum_{i < j} a_i a_j 2^(32 (i + j))
 // by operand scanning, then T = 2 O + sum a_i^2 2^(64 i) in one pass.
 __device__ __forceinline__ void sqr_wide(const uint32_t* a, uint32_t* t) {
@@ -102,36 +87,6 @@ __device__ __forceinline__ void sqr_wide(const uint32_t* a, uint32_t* t) {
     t[2 * i + 1] = (uint32_t)c;
     c >>= 32;
   }
-}
-
-// out = t 2^-384 mod p, canonical (t is clobbered): lh::redc's rows with
-// p's limbs as immediates, then u - p beside u and the choice by its sign.
-__device__ __forceinline__ void redc(uint32_t* t, uint32_t* out) {
-  uint32_t ec = 0;
-#pragma unroll
-  for (int i = 0; i < lh::NL; ++i) {
-    const uint32_t m = t[i] * lh::kN0;
-    uint64_t c = 0;
-#pragma unroll
-    for (int j = 0; j < lh::NL; ++j) {
-      c += (uint64_t)m * p_limb(j) + t[i + j];
-      t[i + j] = (uint32_t)c;
-      c >>= 32;
-    }
-    const uint64_t s = (uint64_t)t[i + lh::NL] + c + ec;
-    t[i + lh::NL] = (uint32_t)s;
-    ec = (uint32_t)(s >> 32);
-  }
-  uint32_t d[lh::NL];
-  long long br = 0;   // signed borrow, arithmetic shift: -1 at the end iff u < p
-#pragma unroll
-  for (int j = 0; j < lh::NL; ++j) {
-    br += (long long)t[lh::NL + j] - p_limb(j);
-    d[j] = (uint32_t)br;
-    br >>= 32;
-  }
-#pragma unroll
-  for (int j = 0; j < lh::NL; ++j) out[j] = br < 0 ? t[lh::NL + j] : d[j];
 }
 
 // g / n as (multiply-high(g, magic) + g) >> shift: PyTorch's IntDivider,
@@ -173,7 +128,7 @@ fp_mul_kernel(uint32_t* __restrict__ out, const uint32_t* __restrict__ a,
     load(y, b + base, n);
     lh::mul_wide(x, y, t);
   }
-  redc(t, x);
+  lh::redc_imm(t, x);
   store(out + base, x, n);
 }
 

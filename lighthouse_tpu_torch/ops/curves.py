@@ -9,7 +9,11 @@ endomorphism, Bowe's subgroup check and Budroni-Pintore cofactor clearing.
     G1 point: (..., 3, 12, n)       projective (X, Y, Z), coords on axis -3
     G2 point: (..., 3, 2, 12, n)    coords on axis -4
 
-Each formula batches its independent products into one kernel call
+The complete addition and doubling are one kernel call each (K5,
+``fused.g1_add`` ... ``g2_double``, csrc/curve_op.cu) on the card; their
+plain versions (``_add_plain`` / ``_double_plain``) are the formulas below on
+the plain versions of the field kernels, which the CPU takes. Elsewhere a
+formula batches its independent products into one kernel call
 (``mul_many``). Masks and scalars are (..., n); scalars are int64 tensors
 holding the bit patterns of unsigned 64-bit values.
 """
@@ -20,22 +24,22 @@ import torch
 
 from ..crypto.bls import curves as _oc
 from ..crypto.bls.constants import BLS_X_ABS
+from . import fused
 from . import limbs as lb
 from . import tower as tw
 
 
 class _FieldAdapter:
-    def __init__(self, tail_ndim, mul, is_zero, zero, one):
+    def __init__(self, tail_ndim, mul, add, sub, neg, mul_small, is_zero, zero, one):
         self.tail_ndim = tail_ndim          # dims of one element incl. batch
         self.mul = mul
+        self.add = add
+        self.sub = sub
+        self.neg = neg
+        self.mul_small = mul_small
         self.is_zero = is_zero
         self.zero = zero                    # device -> constant
         self.one = one
-
-    add = staticmethod(lb.add)
-    sub = staticmethod(lb.sub)
-    neg = staticmethod(lb.neg)
-    mul_small = staticmethod(lb.mul_small)
 
     def _many(self, op, xs, ys):
         """One call of `op` on the stacked operands (one kernel launch, or
@@ -49,22 +53,40 @@ class _FieldAdapter:
         return self._many(self.mul, xs, ys)
 
     def add_many(self, xs, ys):
-        return self._many(lb.add, xs, ys)
+        return self._many(self.add, xs, ys)
 
     def sub_many(self, xs, ys):
-        return self._many(lb.sub, xs, ys)
+        return self._many(self.sub, xs, ys)
 
 
-FP = _FieldAdapter(2, lb.mul, lb.is_zero, lb.zero, lb.one)
-FP2 = _FieldAdapter(3, tw.fp2_mul, tw.fp2_is_zero,
-                    lambda d: tw.consts(d).fp2_zero, lambda d: tw.consts(d).fp2_one)
+def _broadcast(op):
+    return lambda a, b: op(*torch.broadcast_tensors(a, b))
+
+
+_FP_OPS = (lb.add, lb.sub, lb.neg, lb.mul_small, lb.is_zero)
+_FP_PLAIN_OPS = (fused.fp_add_plain, fused.fp_sub_plain, fused.fp_neg_plain,
+                 fused.fp_mul_small_plain, lb.is_zero)
+_FP2_CONSTS = (lambda d: tw.consts(d).fp2_zero, lambda d: tw.consts(d).fp2_one)
+
+FP = _FieldAdapter(2, lb.mul, *_FP_OPS, lb.zero, lb.one)
+FP2 = _FieldAdapter(3, tw.fp2_mul, *_FP_OPS[:4], tw.fp2_is_zero, *_FP2_CONSTS)
+# The same fields on the plain versions of K1, K2 and K4 (pure torch on any
+# device): what K5's plain versions compute with.
+FP_PLAIN = _FieldAdapter(2, _broadcast(fused.fp_mul_plain), *_FP_PLAIN_OPS, lb.zero, lb.one)
+FP2_PLAIN = _FieldAdapter(3, _broadcast(fused.fp2_mul_plain), *_FP_PLAIN_OPS[:4],
+                          tw.fp2_is_zero, *_FP2_CONSTS)
 
 
 class _Group:
-    def __init__(self, field: _FieldAdapter, b3_mul, name: str):
+    def __init__(self, field: _FieldAdapter, plain: _FieldAdapter, b3_mul, name: str,
+                 add, double):
         self.f = field
+        self.plain = plain
         self.b3_mul = b3_mul
         self.name = name
+        # The complete sum p + q (points broadcast) and 2 p: one K5 launch
+        # on the card, the plain versions below on the CPU.
+        self.add, self.double = add, double
 
     def infinity(self, device):
         return _infinity(self.name, torch.device(device))
@@ -90,8 +112,10 @@ class _Group:
         idx = (Ellipsis,) + (None,) * self.f.tail_ndim + (slice(None),)
         return torch.where(mask[idx], a, b)
 
-    def add(self, p, q):
-        f = self.f
+    def _add_plain(self, p, q):
+        """K5's plain version of add: the complete Renes-Costello-Batina
+        addition for a = 0 on the plain field versions."""
+        f = self.plain
         X1, Y1, Z1 = self.coords(p)
         X2, Y2, Z2 = self.coords(q)
         s = f.add_many([X1, Y1, X1, X2, Y2, X2], [Y1, Z1, Z1, Y2, Z2, Z2])
@@ -100,7 +124,7 @@ class _Group:
         u = f.add_many([t0, t1, t0], [t1, t2, t2])
         t3, t4, ty = f.sub_many([m3, m4, m5], u)
         t03 = f.mul_small(t0, 3)
-        t2b, yb = self.b3_many([t2, ty])
+        t2b, yb = self.b3_many([t2, ty], f)
         z3s, t1b = f.add(t1, t2b), f.sub(t1, t2b)
         p0, p1, p2, p3, p4, p5 = f.mul_many(
             [t4, t3, yb, t1b, t03, z3s],
@@ -109,20 +133,21 @@ class _Group:
         y3, z3 = f.add_many([p2, p5], [p3, p4])
         return self.pack(f.sub(p1, p0), y3, z3)
 
-    def double(self, p):
-        f = self.f
+    def _double_plain(self, p):
+        """K5's plain version of double."""
+        f = self.plain
         X, Y, Z = self.coords(p)
         t0, t1, t2, txy = f.mul_many([Y, Y, Z, X], [Y, Z, Z, Y])
-        t2b = self.b3_mul(t2)
+        t2b = self.b3_mul(t2, 3, f)
         z8 = f.mul_small(t0, 8)
         y3s = f.add(t0, t2b)
         t0p = f.sub(t0, f.mul_small(t2b, 3))
         q0, q1, q2, q3 = f.mul_many([t2b, t1, t0p, t0p], [z8, z8, y3s, txy])
         return self.pack(f.add(q3, q3), f.add(q0, q2), q1)
 
-    def b3_many(self, xs):
+    def b3_many(self, xs, f=None):
         axis = -(self.f.tail_ndim + 1)
-        out = self.b3_mul(torch.stack(torch.broadcast_tensors(*xs), dim=axis))
+        out = self.b3_mul(torch.stack(torch.broadcast_tensors(*xs), dim=axis), 3, f or self.f)
         return [out.select(axis, i) for i in range(len(xs))]
 
     def neg(self, p):
@@ -175,18 +200,19 @@ class _Group:
         return lb.tree_reduce_minor(pts, self.add, self.infinity(pts.device), axis_size)
 
 
-def _b3_g1(a, k: int = 3):
+def _b3_g1(a, k: int = 3, f=FP):
     """[3b] a for G1 (b = 4); k = 1 gives [b] a."""
-    return lb.mul_small(a, 4 * k)
+    return f.mul_small(a, 4 * k)
 
 
-def _b3_g2(a, k: int = 3):
+def _b3_g2(a, k: int = 3, f=FP2):
     """[3b] a for G2 (b = 4 xi); k = 1 gives [b] a."""
-    return lb.mul_small(tw.fp2_mul_by_xi(a), 4 * k)
+    a0, a1 = a[..., 0, :, :], a[..., 1, :, :]
+    return f.mul_small(torch.stack([f.sub(a0, a1), f.add(a0, a1)], dim=-3), 4 * k)
 
 
-G1 = _Group(FP, _b3_g1, "G1")
-G2 = _Group(FP2, _b3_g2, "G2")
+G1 = _Group(FP, FP_PLAIN, _b3_g1, "G1", fused.g1_add, fused.g1_double)
+G2 = _Group(FP2, FP2_PLAIN, _b3_g2, "G2", fused.g2_add, fused.g2_double)
 
 
 @lru_cache(maxsize=None)

@@ -12,6 +12,10 @@ XLA field/tower products they fuse, ``ops/limbs.py`` / ``ops/tower.py``
     K4  fp_add / fp_sub / fp_neg / fp_mul_small
                              csrc/fp_add.cu    no Pallas counterpart: the additions XLA
                                                fuses (ops/bm/limbs.py:343-353 add / sub / neg)
+    K5  g1_add / g1_double / g2_add / g2_double
+                             csrc/curve_op.cu  no Pallas counterpart: the complete group
+                                               law XLA fuses (ops/bm/curves.py:100 add,
+                                               :122 double)
 
 Representation (one for the whole port): an Fp element is 12 little-endian
 32-bit limbs of its Montgomery form x * 2^384 mod p, canonical in [0, p),
@@ -52,6 +56,11 @@ header; its square runs 78 distinct Fp products, its product the 144 of
 the schoolbook. None uses tensor cores. K4 needs no multiplies and moves
 96 + 48 bytes an element (neg and mul_small 48 + 48): bound by bytes, one
 thread per element, its inputs strided or broadcast in place (no copy).
+K5 needs 3,024 (G1 add) to 7,776 (G2 add) multiply-adds per 432-864 bytes
+a point, bound by operations, but at the paths' widths (16-4096 points) it
+is its launch floor plus one block's critical path: its schedule
+(``k5_schedule``) runs each level's independent Fp products on parallel
+warps of a block of 32 points, with intermediates in shared memory.
 """
 
 import ctypes
@@ -72,6 +81,7 @@ launches = {
     "fp_mul": 0, "fp_sqr": 0, "fp2_mul": 0, "fp2_sqr": 0,
     "fp12_sqr": 0, "fp12_mul": 0, "fp12_line": 0,
     "fp_add": 0, "fp_sub": 0, "fp_neg": 0, "fp_mul_small": 0,
+    "g1_add": 0, "g1_double": 0, "g2_add": 0, "g2_double": 0,
 }
 
 
@@ -510,6 +520,209 @@ def fp_mul_small_plain(a, k: int):
     return acc
 
 
+# --- K5: the group law's schedule --------------------------------------------
+#
+# K5 (csrc/curve_op.cu) runs one complete Renes-Costello-Batina addition or
+# doubling (a = 0) per point in two levels, each a step of independent Fp
+# products and then a step of reductions, one warp of the block per product
+# and per reduced Fp value. Its schedule is written here once per operation,
+# from the formulas of curves._Group (``_add_plain`` / ``_double_plain``), and
+# handed to the kernel as the generated header curve_plan.h:
+#
+#   product   W = A B, 24 limbs, unreduced; A and B are each a linear
+#             combination sum_k c_k s_k of Fp values in the block's slots
+#             (the inputs, or level 0's reductions), evaluated canonically
+#             mod p (K4's chains for +-1 coefficients, else one pass with a
+#             quotient estimate: K5_INV_HI), so W < p^2;
+#   reduce    an Fp value REDC(T), T = o p^2 + sum_i d_i W_i, o the sum of
+#             the subtracted |d_i|: 0 <= T <= (sum_i |d_i|) p^2 <= 9 p^2 <
+#             p 2^384 (2^384 / p > 9.8), so REDC is canonical (lh::redc_imm).
+# An Fp2 product is Karatsuba's three Fp products (a square two:
+# (a0 + a1)(a0 - a1) and 2 a0 a1), and a reduction folds the Fp2
+# reduction and the formula's sums of products into one REDC. Level 0's
+# reductions overwrite the input slots (every product has read them by
+# then); level 1's go to the output, Fp index coordinate * comps + component.
+#
+# Words per product: K5_LIN per operand, a term kHas | slot | |c| << 8 |
+# (c < 0) << 24, then zeros. Per reduction: a head o | destination << 8 |
+# terms << 16, then K5_RED terms kHas | product | |d| << 8 | (d < 0) << 16.
+
+K5_OPS = ("g1_add", "g1_double", "g2_add", "g2_double")
+K5_LIN = 4
+K5_RED = 9
+K5_HAS = 1 << 31
+K5_REDC_BOUND = P << R_BITS            # REDC is canonical for 0 <= T < p 2^384
+
+
+def _k5_inv_hi() -> float:
+    """2^352 / p (1 - 2^-51), rounded down to a double: an operand's quotient
+    estimate q = trunc(v_hi * this), v_hi = floor(v / 2^352) < 2^47, is
+    floor(v / p) or one less (csrc/curve_op.cu combine)."""
+    from fractions import Fraction
+    target = Fraction(1 << 352, P) * (1 - Fraction(1, 1 << 51))
+    x = float(target)
+    while Fraction(x) > target:
+        x = math.nextafter(x, 0.0)
+    return x
+
+
+K5_INV_HI = _k5_inv_hi()
+
+
+def _sum(*terms):
+    """sum c * x over (c, x) pairs, each x {index: coefficient} (an index a
+    slot or a product)."""
+    acc = {}
+    for c, x in terms:
+        for k, v in x.items():
+            acc[k] = acc.get(k, 0) + c * v
+    return {k: v for k, v in acc.items() if v}
+
+
+def _comb(*terms):
+    """_sum per component of field values (tuples of one such sum per
+    component)."""
+    return tuple(_sum(*((c, x[i]) for c, x in terms)) for i in range(len(terms[0][1])))
+
+
+class _K5Level:
+    """One level of the schedule: its products and its reductions."""
+
+    def __init__(self, comps: int):
+        self.comps = comps
+        self.products, self.reds = [], []
+
+    def _mul(self, x, y):
+        self.products.append((x, y))
+        return {len(self.products) - 1: 1}
+
+    def mul(self, a, b):
+        if self.comps == 1:
+            return (self._mul(a[0], b[0]),)
+        w0, w1 = self._mul(a[0], b[0]), self._mul(a[1], b[1])
+        w2 = self._mul(_sum((1, a[0]), (1, a[1])), _sum((1, b[0]), (1, b[1])))
+        return _sum((1, w0), (-1, w1)), _sum((1, w2), (-1, w0), (-1, w1))
+
+    def sqr(self, a):
+        if self.comps == 1:
+            return self.mul(a, a)
+        w0 = self._mul(_sum((1, a[0]), (1, a[1])), _sum((1, a[0]), (-1, a[1])))
+        return w0, _sum((2, self._mul(a[0], a[1])))
+
+    def reduce(self, *values, out: bool = False):
+        """Reduce each value's components; level 0's go to fresh slots (as
+        values of the next level), level 1's to the output."""
+        got = []
+        for v in values:
+            slots = []
+            for sums in v:
+                dest = len(self.reds)
+                self.reds.append((dest, sum(-d for d in sums.values() if d < 0), sums))
+                slots.append({dest: 1})
+            got.append(tuple(slots))
+        return None if out else got
+
+
+def k5_schedule(op: str):
+    """-> (components per coordinate, the levels [(products, reductions)]):
+    a product (A, B), each {slot: coefficient}; a reduction (destination,
+    offset o, {product: d})."""
+    comps = 2 if op.startswith("g2") else 1
+    ins = [tuple({comps * i + c: 1} for c in range(comps)) for i in range(6)]
+    l0, l1 = _K5Level(comps), _K5Level(comps)
+
+    def b3(x):                                  # [3b] x: 12 x (G1), 12 xi x (G2)
+        if comps == 1:
+            return _comb((12, x))
+        return _sum((12, x[0]), (-12, x[1])), _sum((12, x[0]), (12, x[1]))
+
+    if op.endswith("_add"):
+        X1, Y1, Z1, X2, Y2, Z2 = ins
+        t0, t1, t2 = l0.mul(X1, X2), l0.mul(Y1, Y2), l0.mul(Z1, Z2)
+        m3 = l0.mul(_comb((1, X1), (1, Y1)), _comb((1, X2), (1, Y2)))
+        m4 = l0.mul(_comb((1, Y1), (1, Z1)), _comb((1, Y2), (1, Z2)))
+        m5 = l0.mul(_comb((1, X1), (1, Z1)), _comb((1, X2), (1, Z2)))
+        t0, t1, t2, t3, t4, ty = l0.reduce(
+            t0, t1, t2, _comb((1, m3), (-1, t0), (-1, t1)),
+            _comb((1, m4), (-1, t1), (-1, t2)), _comb((1, m5), (-1, t0), (-1, t2)))
+        t03, t2b, yb = _comb((3, t0)), b3(t2), b3(ty)
+        z3s, t1b = _comb((1, t1), (1, t2b)), _comb((1, t1), (-1, t2b))
+        p0, p1, p2 = l1.mul(t4, yb), l1.mul(t3, t1b), l1.mul(yb, t03)
+        p3, p4, p5 = l1.mul(t1b, z3s), l1.mul(t03, t3), l1.mul(z3s, t4)
+        l1.reduce(_comb((1, p1), (-1, p0)), _comb((1, p2), (1, p3)), _comb((1, p5), (1, p4)),
+                  out=True)
+    else:
+        X, Y, Z = ins[:3]
+        t0, t1, t2, txy = l0.reduce(l0.sqr(Y), l0.mul(Y, Z), l0.sqr(Z), l0.mul(X, Y))
+        t2b = b3(t2)
+        z8, y3s = _comb((8, t0)), _comb((1, t0), (1, t2b))
+        t0p = _comb((1, t0), (-3, t2b))
+        q0, q1, q2, q3 = l1.mul(t2b, z8), l1.mul(t1, z8), l1.mul(t0p, y3s), l1.mul(t0p, txy)
+        l1.reduce(_comb((2, q3)), _comb((1, q0), (1, q2)), q1, out=True)
+    levels = [(lv.products, lv.reds) for lv in (l0, l1)]
+    _k5_check(levels)
+    return comps, levels
+
+
+def _k5_check(levels):
+    """The bounds the kernel relies on, per the comment above."""
+    for products, reds in levels:
+        for x, y in products:
+            for lin in (x, y):
+                if len(lin) > K5_LIN or any(not 0 < abs(c) < 1 << 16 for c in lin.values()):
+                    raise AssertionError(f"K5 operand out of range: {lin}")
+        for _, off, sums in reds:
+            pos = sum(d for d in sums.values() if d > 0)
+            if len(sums) > K5_RED or any(abs(d) > 255 for d in sums.values()):
+                raise AssertionError(f"K5 reduction out of range: {sums}")
+            if pos * (P - 1) ** 2 + off * P * P >= K5_REDC_BOUND:
+                raise AssertionError(f"K5 reduction above REDC's bound: {sums}")
+
+
+def k5_plan_words(op: str):
+    """The schedule as the kernel reads it (the comment above)."""
+    words = []
+    for products, reds in k5_schedule(op)[1]:
+        for x, y in products:
+            for lin in (x, y):
+                terms = [K5_HAS | s | abs(c) << 8 | (c < 0) << 24 for s, c in lin.items()]
+                words += terms + [0] * (K5_LIN - len(terms))
+        for dest, off, sums in reds:
+            terms = [K5_HAS | i | abs(d) << 8 | (d < 0) << 16 for i, d in sums.items()]
+            words += [off | dest << 8 | len(terms) << 16] + terms + [0] * (K5_RED - len(terms))
+    return words
+
+
+def k5_plan_header() -> str:
+    """csrc/curve_op.cu's generated header (written at build time by
+    ``_build``): per operation a struct of its counts, with its schedule's
+    words in device memory."""
+    lines = ["// Generated by lighthouse_tpu_torch/ops/fused.py (k5_plan_header) from",
+             "// k5_schedule: the schedule of csrc/curve_op.cu. Do not edit.",
+             "#pragma once", "#include <cstdint>",
+             f"#define LH_K5_LIN {K5_LIN}", f"#define LH_K5_RED {K5_RED}",
+             f"#define LH_K5_INV_HI {K5_INV_HI.hex()}"]
+    for op in K5_OPS:
+        comps, ((p0, r0), (p1, r1)) = k5_schedule(op)
+        words = k5_plan_words(op)
+        name = "".join(part.capitalize() for part in op.split("_"))
+        inputs = (2 if op.endswith("_add") else 1) * 3 * comps
+        counts = {"comps": comps, "inputs": inputs, "np0": len(p0), "nr0": len(r0),
+                  "np1": len(p1), "nr1": len(r1), "slots": max(inputs, len(r0)),
+                  "wide": max(len(p0), len(p1)),
+                  "warps": max(len(p0), len(r0), len(p1), len(r1)), "words": len(words)}
+        rows = ",\n".join("    " + ", ".join(f"0x{w:08x}u" for w in words[i:i + 6])
+                          for i in range(0, len(words), 6))
+        lines += [f"struct K5{name} {{",
+                  "  static constexpr int " + ", ".join(f"{k} = {v}" for k, v in counts.items()) + ";",
+                  "  static __device__ __forceinline__ const uint32_t* plan();",
+                  "};",
+                  f"__device__ const uint32_t kK5Plan{name}[{len(words)}] = {{", rows, "};",
+                  f"__device__ __forceinline__ const uint32_t* K5{name}::plan() "
+                  f"{{ return kK5Plan{name}; }}"]
+    return "\n".join(lines) + "\n"
+
+
 PLAIN = {
     "fp_mul": fp_mul_plain, "fp_sqr": fp_sqr_plain,
     "fp2_mul": fp2_mul_plain, "fp2_sqr": fp2_sqr_plain,
@@ -519,11 +732,26 @@ PLAIN = {
     "fp_mul_small": fp_mul_small_plain,
 }
 
+
+def _curve_plain(group: str, op: str):
+    """K5's plain versions: the formulas of curves._Group on the plain
+    versions above (curves imports this module, so it is looked up at call
+    time)."""
+    def plain(*xs):
+        from . import curves
+        return getattr(getattr(curves, group), op)(*xs)
+    return plain
+
+
+PLAIN.update({f"{g.lower()}_{op}": _curve_plain(g, f"_{op}_plain")
+              for g in ("G1", "G2") for op in ("add", "double")})
+
 # --------------------------------------------------------------------------
 # Wrappers
 # --------------------------------------------------------------------------
 
-_TAIL = {"fp": (NL,), "fp2": (2, NL), "fp12": (2, 3, 2, NL), "line": (3, 2, NL)}
+_TAIL = {"fp": (NL,), "fp2": (2, NL), "fp12": (2, 3, 2, NL), "line": (3, 2, NL),
+         "g1": (3, NL), "g2": (3, 2, NL)}
 
 # kernel name -> (library, C entry point, operand kinds)
 _KERNELS = {
@@ -539,6 +767,11 @@ _KERNELS = {
     "fp_sub": ("fp_add", "lh_fp_sub", ("fp", "fp")),
     "fp_neg": ("fp_add", "lh_fp_neg", ("fp",)),
     "fp_mul_small": ("fp_add", "lh_fp_mul_small", ("fp",)),
+    # K5 launches through _run_curve.
+    "g1_add": ("curve_op", "lh_g1_add", ("g1", "g1")),
+    "g1_double": ("curve_op", "lh_g1_dbl", ("g1",)),
+    "g2_add": ("curve_op", "lh_g2_add", ("g2", "g2")),
+    "g2_double": ("curve_op", "lh_g2_dbl", ("g2",)),
 }
 
 
@@ -636,13 +869,15 @@ def fp12_mul_line(a, line):
 # strided and broadcast inputs to the kernel as they are.
 
 MUL_SMALL_MAX = 1 << 16
-_K4_FNS: dict = {}
+_FNS: dict = {}
 
 
-def _k4_fn(name):
-    fn = _K4_FNS.get(name)
+def _kernel_fn(name):
+    """K4's and K5's C function for `name`, resolved once."""
+    fn = _FNS.get(name)
     if fn is None:
-        fn = _K4_FNS[name] = getattr(_build.library("fp_add"), _KERNELS[name][1])
+        lib, entry, _ = _KERNELS[name]
+        fn = _FNS[name] = getattr(_build.library(lib), entry)
     return fn
 
 
@@ -659,11 +894,13 @@ def _broadcast_shape(s, t):
     return tuple(out)
 
 
-def _geometry(shape, xs):
-    """Each input's element strides over an output of `shape` (..., 12, n),
-    its lead axes folded into two row levels (r1, r0): -> (r0, [(s1, s0,
-    sl, sn) per input]), or None where the lead axes fold into more than
-    two levels. A broadcast axis has stride 0."""
+def _geometry(shape, xs, tail: int = 2):
+    """Each input's element strides over an output of `shape`, its lead
+    axes (all but the last `tail`: (12, n) for K4, (3, 12, n) or
+    (3, 2, 12, n) for K5) folded into two row levels (r1, r0): -> (r0,
+    [(s1, s0, strides of the tail axes...) per input]), or None where the
+    lead axes fold into more than two levels. A broadcast axis has stride
+    0."""
     nd = len(shape)
     strides = []
     for x in xs:
@@ -674,7 +911,7 @@ def _geometry(shape, xs):
                 s[off + i] = st
         strides.append(s)
     dims = []                                   # [(size, [stride per input])], outer first
-    for i in range(nd - 2):
+    for i in range(nd - tail):
         size = shape[i]
         if size == 1:
             continue
@@ -688,7 +925,37 @@ def _geometry(shape, xs):
     while len(dims) < 2:
         dims.insert(0, (1, [0] * len(xs)))
     (_, s1), (r0, s0) = dims
-    return r0, [(s1[k], s0[k], strides[k][-2], strides[k][-1]) for k in range(len(xs))]
+    return r0, [(s1[k], s0[k], *strides[k][nd - tail:]) for k in range(len(xs))]
+
+
+def _layout(xs, tail: int):
+    """The output of one K4 or K5 launch over inputs xs (broadcast), the
+    inputs its pointers will refer to, its rows and n, and the inputs'
+    folded strides from _geometry (None for dense inputs, each of the
+    output's shape and contiguous, and for lead axes that fold into no two
+    levels, which are copied dense)."""
+    a, b = xs[0], xs[-1]
+    folded = None
+    if a.shape == b.shape and a.is_contiguous() and b.is_contiguous():
+        out = torch.empty_like(a)
+    else:
+        shape = _broadcast_shape(a.shape, b.shape)
+        out = torch.empty(shape, dtype=torch.int32, device=a.device)
+        folded = _geometry(shape, xs, tail)
+        if folded is None:
+            xs = [x.expand(shape).contiguous() for x in xs]
+    n = out.shape[-1]
+    rows = out.numel() // (math.prod(out.shape[-tail:-1]) * n) if n else 0
+    return out, xs, rows, n, folded
+
+
+def _geometry_array(folded):
+    """_geometry's (r0, strides per input) as the int64 array the C entry
+    points read, or None."""
+    if folded is None:
+        return None
+    r0, strides = folded
+    return (ctypes.c_longlong * (1 + sum(map(len, strides))))(r0, *(v for g in strides for v in g))
 
 
 def _k4_args(name, xs, k):
@@ -697,28 +964,11 @@ def _k4_args(name, xs, k):
     (None for dense inputs, else an int64 array of r0 and each input's
     strides). Also returns the inputs the pointers refer to, which the
     caller keeps alive over the launch."""
-    a = xs[0]
-    b = xs[-1]
-    if a.shape == b.shape and a.is_contiguous() and b.is_contiguous():
-        out = torch.empty_like(a)
-        n = a.shape[-1]
-        geom = None
-    else:
-        shape = _broadcast_shape(a.shape, b.shape)
-        n = shape[-1]
-        out = torch.empty(shape, dtype=torch.int32, device=a.device)
-        folded = _geometry(shape, xs)
-        if folded is None:                      # lead axes that fold into no two levels
-            xs = [x.expand(shape).contiguous() for x in xs]
-            geom = None
-        else:
-            r0, strides = folded
-            geom = (ctypes.c_longlong * (1 + 4 * len(xs)))(r0, *(v for g in strides for v in g))
-    rows = out.numel() // (NL * n) if n else 0
+    out, xs, rows, n, folded = _layout(xs, 2)
     args = [out.data_ptr()] + [x.data_ptr() for x in xs] + [rows, n]
     if name == "fp_mul_small":
         args.append(k)
-    args.append(geom)
+    args.append(_geometry_array(folded))
     return out, xs, args
 
 
@@ -735,17 +985,10 @@ def _check_additive(name, xs, k):
         raise ValueError(f"fp_mul_small: k = {k!r} is not an int in [1, 2^16)")
 
 
-def _run_additive(name, xs, k=0):
-    _check_additive(name, xs, k)
-    dev = xs[0].device
-    if dev.type == "cpu":
-        return PLAIN[name](*xs, k) if name == "fp_mul_small" else PLAIN[name](*xs)
-    if dev.type != "cuda":
-        raise ValueError(f"{name}: no kernel for device {dev}")
-    out, _inputs, args = _k4_args(name, xs, k)
-    if out.numel() == 0:
-        return out
-    fn = _k4_fn(name)
+def _call_kernel(name, args, dev):
+    """K4's or K5's C entry point on the current stream of `dev`; a
+    nonzero cudaError_t raises."""
+    fn = _kernel_fn(name)
     if dev.index == torch.cuda.current_device():
         rc = fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
     else:
@@ -754,6 +997,18 @@ def _run_additive(name, xs, k=0):
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed with cudaError_t {rc}")
     launches[name] += 1
+
+
+def _run_additive(name, xs, k=0):
+    _check_additive(name, xs, k)
+    dev = xs[0].device
+    if dev.type == "cpu":
+        return PLAIN[name](*xs, k) if name == "fp_mul_small" else PLAIN[name](*xs)
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {dev}")
+    out, _inputs, args = _k4_args(name, xs, k)
+    if out.numel():
+        _call_kernel(name, args, dev)
     return out
 
 
@@ -777,8 +1032,74 @@ def fp_mul_small(a, k: int):
     return _run_additive("fp_mul_small", (a,), k)
 
 
+# --- K5 ---------------------------------------------------------------------
+#
+# K5's wrapper follows K4's: the C function resolved once, the checks that a
+# wrong call would corrupt (dtype, the point's axes, the device), and strided
+# and broadcast points handed to the kernel as they are, their strides folded
+# into K4's two row levels plus the coordinate, component, limb and column
+# strides.
+
+def _k5_args(name, xs):
+    """The output of one K5 launch and the C entry point's arguments but the
+    stream: the data pointers, rows, n and the geometry (None for dense
+    inputs, else an int64 array of r0 and per input s1, s0 and the
+    coordinate, component (0 for G1), limb and column strides). Also returns
+    the inputs the pointers refer to, which the caller keeps alive over the
+    launch."""
+    tail = len(_TAIL[_KERNELS[name][2][0]]) + 1
+    out, xs, rows, n, folded = _layout(xs, tail)
+    if folded is not None and tail == 3:        # G1: no component axis
+        r0, strides = folded
+        folded = r0, [(s1, s0, sc, 0, sl, sn) for s1, s0, sc, sl, sn in strides]
+    return out, xs, [out.data_ptr()] + [x.data_ptr() for x in xs] + [rows, n,
+                                                                   _geometry_array(folded)]
+
+
+def _run_curve(name, xs):
+    kind = _KERNELS[name][2][0]
+    tail = _TAIL[kind]
+    dev = xs[0].device
+    for x in xs:
+        if not isinstance(x, torch.Tensor) or x.dtype != torch.int32:
+            raise TypeError(f"{name}: points must be int32 tensors")
+        if x.dim() <= len(tail) or tuple(x.shape[-len(tail) - 1:-1]) != tail:
+            raise ValueError(f"{name}: point shape {tuple(x.shape)} does not end in {tail} + (n,)")
+        if x.device != dev:
+            raise ValueError(f"{name}: points on {dev} and {x.device}")
+    if dev.type == "cpu":
+        return PLAIN[name](*xs)
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {dev}")
+    out, _inputs, args = _k5_args(name, xs)
+    if out.numel():
+        _call_kernel(name, args, dev)
+    return out
+
+
+def g1_add(p, q):
+    """K5: the complete sum p + q of G1 points (..., 3, 12, n), broadcast."""
+    return _run_curve("g1_add", (p, q))
+
+
+def g1_double(p):
+    """K5: 2 p for G1 points (..., 3, 12, n)."""
+    return _run_curve("g1_double", (p,))
+
+
+def g2_add(p, q):
+    """K5: the complete sum p + q of G2 points (..., 3, 2, 12, n), broadcast."""
+    return _run_curve("g2_add", (p, q))
+
+
+def g2_double(p):
+    """K5: 2 p for G2 points (..., 3, 2, 12, n)."""
+    return _run_curve("g2_double", (p,))
+
+
 WRAPPERS = {
     "fp_mul": fp_mul, "fp_sqr": fp_sqr, "fp2_mul": fp2_mul, "fp2_sqr": fp2_sqr,
     "fp12_sqr": fp12_sqr, "fp12_mul": fp12_mul, "fp12_line": fp12_mul_line,
     "fp_add": fp_add, "fp_sub": fp_sub, "fp_neg": fp_neg, "fp_mul_small": fp_mul_small,
+    "g1_add": g1_add, "g1_double": g1_double, "g2_add": g2_add, "g2_double": g2_double,
 }

@@ -231,10 +231,12 @@ def test_replay_mul_small_on_edges(k):
 
 
 def test_kernel_source_constants():
-    """p's immediates in fp_add.cu, the block of elements, and the range of k
-    the launcher accepts."""
-    src = (Path(fused.__file__).parent / "csrc" / "fp_add.cu").read_text()
-    body = src[src.index("constexpr uint32_t p_limb"):]
+    """p's immediates in fp.cuh (lh::p_limb, which fp_add.cu's chains read),
+    the block of elements, and the range of k the launcher accepts."""
+    csrc = Path(fused.__file__).parent / "csrc"
+    src = (csrc / "fp_add.cu").read_text()
+    header = (csrc / "fp.cuh").read_text()
+    body = header[header.index("constexpr uint32_t p_limb"):]
     imms = [int(h, 16) for h in re.findall(r"0x([0-9a-f]{8})u", body[:body.index("}")])]
     assert imms == P_LIMBS
     assert "k < 1 || k >= (1 << 16)" in src

@@ -272,8 +272,9 @@ def test_row_by_multiply_high(n):
 
 
 def test_source_p_limbs():
-    """fp_mul.cu's p_limb(j), p as immediates, against p's limbs."""
-    text = (CSRC / "fp_mul.cu").read_text()
+    """lh::p_limb(j) (fp.cuh, which fp_mul.cu's REDC reads), p as
+    immediates, against p's limbs."""
+    text = (CSRC / "fp.cuh").read_text()
     body = re.search(r"constexpr uint32_t p_limb\(int j\) \{(.*?)\n\}", text, re.S).group(1)
     got = [int(v, 16) for v in re.findall(r"0x([0-9a-f]{8})u", body)]
     order = [int(v) for v in re.findall(r"j == (\d+)", body)]
