@@ -105,6 +105,30 @@ Phases, each printing one JSON line:
             headline and by_root verify (nothing launched from Python, every
             captured port kernel in the trace, busy ms, idle share).
 
+10. serving the serving path in front of the card. pipelined: the headline
+            batch, warm, PIPELINED_BATCHES times with every fifth the
+            poisoned copy, as a blocking loop (api.verify_signature_sets)
+            and pipelined (every batch dispatched through
+            verify_signature_sets_gpu_async, then every verdict read), in
+            turns (blocking, pipelined, pipelined, blocking), every verdict
+            as expected; sets/s of each, and torch.profiler over one more
+            pipelined run (busy ms, the card's idle share). stages:
+            engine_stage_seconds{engine="gpu"} of h2g2, prepare and pairing
+            (CUDA events) over STAGE_TIMED_CALLS replayed and eager
+            verifies, beside the eager run's synchronised stage walls.
+            cpu_route: the native backend "cpu" (built on first use) at 1,
+            4 and 16 sets of the headline and of the distinct sets, ms a
+            set and the host CPU's model; a poisoned 16 False; every
+            batch_verify vector at its output. scheduler: the ShapeWarmer
+            over the default grid with the batch policy, then a
+            ContinuousBatchScheduler over the real router (cpu and gpu)
+            drains the headline's sets as gossip_aggregate, the poisoned
+            set as gossip_attestation, the 256 distinct sets as
+            gossip_sync_signature, and
+            SINGLE_JOBS single sets submitted alone: every job's verdict as
+            expected; batches by route and size, close causes, deadline
+            hits and misses, the router's learned table.
+
 Then the card's name and power limit, the kernel summary line (launches:
 the main path's first headline verify through the API, which runs each
 stage eagerly and captures it; launches_per_verify: one eager verify, what
@@ -126,6 +150,7 @@ entry point gets floor_ms null there.
 import collections
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -892,7 +917,7 @@ def phase_verify():
           "find_invalid_32": {"culprits": culprits, "wall_s": find_s},
           "host_signing_s": sign_s + sign2_s})
     return (launches, per_verify, shapes, by_shape,
-            (lambda: _eager_verify(sets), lambda: _bls_stages(sets)), sets)
+            (lambda: _eager_verify(sets), lambda: _bls_stages(sets)), sets, poisoned, distinct)
 
 
 def phase_top_shapes(by_shape, lib):
@@ -1459,6 +1484,284 @@ def phase_warmer(sets):
           "memory_reserved_bytes": torch.cuda.memory_reserved()})
 
 
+# The serving phase: the headline pipelined, the stage timers, the native
+# CPU route, and the scheduler over the router.
+PIPELINED_BATCHES = 20      # every fifth one poisoned
+STAGE_TIMED_CALLS = 5
+CPU_ROUTE_SIZES = (1, 4, 16)
+CPU_ROUTE_RUNS = 3
+SINGLE_JOBS = 8
+
+
+def _host_cpu() -> dict:
+    """The host CPU as /proc/cpuinfo names it (a virtual machine may say
+    "unknown" for the model name: its family, model and stepping then
+    identify it), with the cores this process may use."""
+    keys = ("model name", "vendor_id", "cpu family", "model", "stepping", "cpu MHz")
+    out = {}
+    with open("/proc/cpuinfo") as f:
+        for line in f:
+            key, _, value = line.partition(":")
+            key = key.strip()
+            if key in keys and key not in out:
+                out[key] = value.strip()
+    if "model name" not in out:
+        raise AssertionError("no model name in /proc/cpuinfo")
+    out["usable_cores"] = len(os.sched_getaffinity(0))
+    return out
+
+
+def _pipelined(batches, expected, what):
+    """Dispatch every batch through the async API, then read every verdict
+    -> (wall s from the first dispatch to the last verdict, dispatch s)."""
+    from lighthouse_tpu_torch.ops import backend
+
+    t0 = time.perf_counter()
+    pending = [backend.verify_signature_sets_gpu_async(b) for b in batches]
+    dispatched = time.perf_counter() - t0
+    got = [bool(p) for p in pending]
+    wall = time.perf_counter() - t0
+    if got != expected:
+        raise AssertionError(f"{what}: verdicts {got}, expected {expected}")
+    return wall, dispatched
+
+
+def _blocking(batches, expected, what):
+    from lighthouse_tpu_torch.crypto.bls import api
+
+    t0 = time.perf_counter()
+    got = [api.verify_signature_sets(b) for b in batches]
+    wall = time.perf_counter() - t0
+    if got != expected:
+        raise AssertionError(f"{what}: verdicts {got}, expected {expected}")
+    return wall
+
+
+def _stage_device_s(reg_hist, stages_):
+    """{stage: (count, sum s)} of engine_stage_seconds{engine="gpu"}."""
+    out = {}
+    for stage in stages_:
+        child = reg_hist.labels(engine="gpu", stage=stage)
+        _, count, total = child.snapshot()
+        out[stage] = (count, total)
+    return out
+
+
+def _dispatch_split(sets, reps=5):
+    """The async verify's host work in its parts, `reps` batches pipelined
+    as verify_signature_sets_gpu_async runs them: stage_host, to_device,
+    the bucket's dispatch (copies into the static inputs, three replays,
+    the verdict's copy and event), then every verdict read at the end."""
+    from lighthouse_tpu_torch.ops import backend
+
+    out = {"stage_host_s": [], "to_device_s": [], "dispatch_s": []}
+    pending = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        host, m_bucket, checked = backend.stage_host(sets)
+        t1 = time.perf_counter()
+        args = backend.to_device(host, DEVICE)
+        t2 = time.perf_counter()
+        k_bucket, _, _, n_bucket = args[3].shape
+        pending.append(backend.graph_core(n_bucket, k_bucket, m_bucket, checked,
+                                          args[0].device).dispatch(*args))
+        t3 = time.perf_counter()
+        for key, dt in (("stage_host_s", t1 - t0), ("to_device_s", t2 - t1),
+                        ("dispatch_s", t3 - t2)):
+            out[key].append(dt)
+    t4 = time.perf_counter()
+    if [bool(p) for p in pending] != [True] * reps:
+        raise AssertionError("the dispatch split's batches did not verify")
+    out["read_all_s"] = time.perf_counter() - t4
+    return out
+
+
+def _serving_pipeline(sets, poisoned):
+    """The headline batch dispatched PIPELINED_BATCHES times, every fifth
+    the poisoned copy: blocking and pipelined in turns, then the pipelined
+    run traced; the async verify's host work timed in its parts."""
+    n = len(sets)
+    batches = [poisoned if i % 5 == 4 else sets for i in range(PIPELINED_BATCHES)]
+    expected = [i % 5 != 4 for i in range(PIPELINED_BATCHES)]
+    walls = {"blocking": [], "pipelined": []}
+    dispatch_s = []
+    for mode in ("blocking", "pipelined", "pipelined", "blocking"):
+        if mode == "blocking":
+            walls[mode].append(_blocking(batches, expected, "blocking loop"))
+        else:
+            wall, disp = _pipelined(batches, expected, "pipelined loop")
+            walls[mode].append(wall)
+            dispatch_s.append(disp)
+    _, tr = _trace(lambda: _pipelined(batches, expected, "traced pipelined loop"))
+    rates = {mode: [len(batches) * n / w for w in v] for mode, v in walls.items()}
+    return {"dispatch_split": _dispatch_split(sets),
+            "batches": len(batches), "sets_per_batch": n, "poisoned_every": 5,
+            "verdicts_as_expected": True, "walls_s": walls, "sets_per_s": rates,
+            "pipelined_dispatch_s": dispatch_s,
+            "pipelined_over_blocking": statistics.median(rates["pipelined"])
+            / statistics.median(rates["blocking"]),
+            "profile": {k: tr[k] for k in ("wall_s", "kernels", "port_kernels", "busy_ms",
+                                           "idle_share_of_wall", "postprocess_s")}}
+
+
+def _serving_stages(sets, stages_s):
+    """engine_stage_seconds{engine="gpu"} over STAGE_TIMED_CALLS replayed
+    verifies and as many eager ones (CUDA events, settled once read),
+    beside the eager run's synchronised stage walls."""
+    from lighthouse_tpu_torch.crypto.bls import api
+    from lighthouse_tpu_torch.observability import stages
+
+    names = ("h2g2", "prepare", "pairing")
+    hist = stages.stage_seconds()
+    out = {}
+    stages.force_timing(True)
+    try:
+        for path, fn in (("replayed", lambda: api.verify_signature_sets(sets)),
+                         ("eager", lambda: _eager_verify(sets))):
+            before = _stage_device_s(hist, names)
+            for _ in range(STAGE_TIMED_CALLS):
+                if fn() is not True:
+                    raise AssertionError(f"the {path} headline did not verify with timing on")
+            stages.settle(wait=True)
+            after = _stage_device_s(hist, names)
+            counts = {k: after[k][0] - before[k][0] for k in names}
+            if counts != {k: STAGE_TIMED_CALLS for k in names}:
+                raise AssertionError(f"{path}: stage samples {counts}")
+            out[path] = {k: (after[k][1] - before[k][1]) / STAGE_TIMED_CALLS for k in names}
+    finally:
+        stages.force_timing(False)
+    return {"engine": "gpu", "mean_device_s": out, "eager_wall_stages_s": stages_s,
+            "calls": STAGE_TIMED_CALLS}
+
+
+def _serving_cpu_route(sets, distinct):
+    """The native cpu backend at CPU_ROUTE_SIZES sets of the headline (4
+    keys a set) and of the 256 distinct one-key sets, a poisoned batch,
+    and the batch_verify vectors."""
+    from lighthouse_tpu_torch.crypto.bls import api, cpu_backend
+
+    t0 = time.perf_counter()
+    cpu_backend.get_lib()
+    build_s = time.perf_counter() - t0
+    per = {}
+    for what, pool in (("headline_4_keys", sets), ("distinct_1_key", distinct)):
+        for size in CPU_ROUTE_SIZES:
+            runs = []
+            for _ in range(CPU_ROUTE_RUNS):
+                t1 = time.perf_counter()
+                ok = api.verify_signature_sets(pool[:size], backend="cpu")
+                runs.append(time.perf_counter() - t1)
+                if ok is not True:
+                    raise AssertionError(f"cpu route: {size} {what} sets did not verify")
+            per[f"{what}/{size}"] = {"ms_per_set": 1e3 * statistics.median(runs) / size,
+                                     "runs_s": runs}
+    bad = list(sets[:16])
+    bad[13] = api.SignatureSet(sets[14].signature, bad[13].signing_keys, bad[13].message)
+    if api.verify_signature_sets(bad, backend="cpu") is not False:
+        raise AssertionError("cpu route: a poisoned batch of 16 verified")
+    base = ROOT / "tests" / "vectors" / "general" / "phase0" / "bls" / "batch_verify" / "small"
+    cases = {}
+    for meta in sorted(base.glob("*/meta.json")):
+        case = json.loads(meta.read_text())
+        vsets = _vector_sets(api, "batch_verify", case["input"])
+        got = False if vsets is None else api.verify_signature_sets(vsets, backend="cpu")
+        if got != case["output"]:
+            raise AssertionError(f"cpu route: batch_verify/{meta.parent.name} gave {got}")
+        cases[meta.parent.name] = got
+    if not cases:
+        raise AssertionError("no batch_verify vectors found")
+    return {"host_cpu": _host_cpu(), "build_s": build_s, "by_size": per,
+            "poisoned_16": False, "batch_verify_vectors": cases}
+
+
+def _serving_scheduler(sets, poisoned_set, distinct):
+    """The warmer with the batch policy over the default grid, then a
+    ContinuousBatchScheduler with the real router draining the headline as
+    gossip_aggregate (4096, the queue's capacity), the poisoned set as
+    gossip_attestation, the 256 distinct sets as gossip_sync_signature, and
+    SINGLE_JOBS single sets submitted alone."""
+    from lighthouse_tpu_torch.beacon_processor.processor import AdaptiveBatchPolicy
+    from lighthouse_tpu_torch.beacon_processor.warming import DEFAULT_SHAPE_GRID, ShapeWarmer
+    from lighthouse_tpu_torch.common import metrics
+    from lighthouse_tpu_torch.common.slot_clock import SystemTimeSlotClock
+    from lighthouse_tpu_torch.serving.router import CostModelRouter
+    from lighthouse_tpu_torch.serving.scheduler import ContinuousBatchScheduler, VerifyJob
+
+    policy = AdaptiveBatchPolicy()
+    cap_before = policy.batch_limit(1 << 20)
+    warmer = ShapeWarmer(policy=policy, device=DEVICE)
+    t0 = time.perf_counter()
+    warmer.start()
+    warmer.join(timeout=900)
+    warm_s = time.perf_counter() - t0
+    if warmer.failed or warmer.warmed != list(DEFAULT_SHAPE_GRID):
+        raise AssertionError(f"the warmer warmed {warmer.warmed}, failed {warmer.failed}")
+    reg = metrics.Registry()
+    router = CostModelRouter(registry=reg)
+    clock = SystemTimeSlotClock(genesis_time=int(time.time()) - 1, seconds_per_slot=12)
+    sched = ContinuousBatchScheduler(clock, policy, router, registry=reg)
+    batches = []
+    verify = router.verify
+
+    def logged(batch, deadline_budget=None):
+        t1 = time.perf_counter()
+        ok, route = verify(batch, deadline_budget)
+        batches.append({"sets": len(batch), "route": route, "ok": ok,
+                        "wall_s": time.perf_counter() - t1, "budget_s": deadline_budget})
+        return ok, route
+
+    router.verify = logged
+    verdicts, expected = [], []
+
+    def submit(kind, sset, ok):
+        i = len(verdicts)
+        verdicts.append(None)
+        expected.append(ok)
+        if not sched.submit(VerifyJob(kind, sset, lambda v, i=i: verdicts.__setitem__(i, v))):
+            raise AssertionError(f"the scheduler dropped a {kind} job")
+
+    t0 = time.perf_counter()
+    for s in sets:
+        submit("gossip_aggregate", s, True)
+    submit("gossip_attestation", poisoned_set, False)     # the aggregates' queue is full
+    for s in distinct:
+        submit("gossip_sync_signature", s, True)
+    drained = sched.run_until_idle()
+    for s in distinct[-SINGLE_JOBS:]:
+        submit("gossip_sync_signature", s, True)
+        drained += sched.run_until_idle()
+    drain_s = time.perf_counter() - t0
+    if verdicts != expected:
+        wrong = [i for i, (v, e) in enumerate(zip(verdicts, expected)) if v != e]
+        raise AssertionError(f"scheduler: {len(wrong)} jobs got the wrong verdict, first {wrong[:5]}")
+    close = reg.counter_vec("serving_scheduler_close_total")
+    routes = reg.counter_vec("serving_router_route_total")
+    reasons = reg.counter_vec("serving_router_reason_total")
+    return {"warm_s": warm_s, "warmed": warmer.warmed, "graphs_captured": len(warmer.captured),
+            "batch_cap_before_warm": cap_before, "batch_cap_after_warm": policy.batch_limit(1 << 20),
+            "jobs": len(verdicts), "verdicts_as_expected": True, "drain_s": drain_s,
+            "batches_dispatched": drained, "batches": batches,
+            "stats": {"batches": sched.stats.batches, "items": sched.stats.items,
+                      "deadline_hits": sched.stats.deadline_hits,
+                      "deadline_misses": sched.stats.deadline_misses,
+                      "poisoned": sched.stats.poisoned, "by_route": sched.stats.by_route},
+            "close_causes": {c: close.get(c) for c in ("bucket_full", "deadline", "flush")},
+            "routes": {r: routes.get(r) for r in ("cpu", "device")},
+            "reasons": {r: reasons.get(r) for r in ("small", "deadline", "cost", "default")},
+            "learned_table_s": router.table.snapshot()}
+
+
+def phase_serving(sets, poisoned, distinct, stages_s):
+    """The serving path in front of the card (module docstring, phase 10),
+    one line a part."""
+    gpu = nvidia_smi("name,power.limit")
+    emit({"phase": "serving", "gpu": gpu, "pipelined": _serving_pipeline(sets, poisoned)})
+    emit({"phase": "serving", "gpu": gpu, "stages": _serving_stages(sets, stages_s)})
+    emit({"phase": "serving", "gpu": gpu, "cpu_route": _serving_cpu_route(sets, distinct)})
+    emit({"phase": "serving", "gpu": gpu,
+          "scheduler": _serving_scheduler(sets, poisoned[69], distinct)})
+
+
 def _summary(kernels, by_shape, launches, shape_errs, launches_kzg, per_verify=None,
              per_verify_kzg=None):
     """The kernels line. `launches` counts the main path's first headline
@@ -1508,7 +1811,7 @@ def main(argv) -> int:
         print(nvidia_smi("name,power.limit"), flush=True)
         emit({"kernels": _summary(kernels, kernel_by_shape, {}, {}, {})})
         return 0
-    launches, per_verify, shapes, by_shape, headline, sets = phase_verify()
+    launches, per_verify, shapes, by_shape, headline, sets, poisoned, distinct = phase_verify()
     shape_errs = phase_main_path_shapes(shapes)
     for lib in FLOORED:
         phase_top_shapes(by_shape, lib)
@@ -1519,6 +1822,7 @@ def main(argv) -> int:
     phase_warmer(sets)
     phase_profile(headline, kzg_by_root)
     phase_graphs(sets, kzg_state)
+    phase_serving(sets, poisoned, distinct, _stage_seconds(headline[1](), "headline batch"))
     summary = _summary(kernels, kernel_by_shape, launches, errs, launches_kzg, per_verify,
                        per_verify_kzg)
     emit({"phase": "done", "seconds": time.perf_counter() - t0})

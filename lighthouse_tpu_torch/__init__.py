@@ -5,6 +5,9 @@ Slice 1 holds the main path, batch BLS12-381 signature-set verification:
 ``crypto.bls.api.verify_signature_sets`` with the backend ``"gpu"``
 (``ops.backend``), built on the field, tower, curve, hash-to-curve and
 pairing layers in ``ops/`` and the hand-written CUDA kernels of
-``ops/csrc``. The package imports torch and never jax, and nothing of
-lighthouse_tpu.
+``ops/csrc``. In front of it runs the serving path: the batch former
+(``beacon_processor``), the continuous-batch scheduler and the cost-model
+router (``serving``), which sends small batches to the native CPU verifier
+(backend ``"cpu"``). The package imports torch and never jax, and nothing
+of lighthouse_tpu.
 """

@@ -1,1 +1,2 @@
-"""Beacon-processor seams of the port: the shape warmer (``warming``)."""
+"""Beacon-processor seams of the port: the priority work queues and batch
+former (``processor``) and the shape warmer (``warming``)."""

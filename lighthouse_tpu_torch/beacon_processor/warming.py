@@ -12,9 +12,15 @@ all_checked=False is captured on its first use. A verify in another thread
 may run meanwhile: it replays warm keys, and a key being captured is
 captured once (its lock), the other caller waiting for it.
 
-The grid stops at (4096, 4): the port has no chunked prep stage, and no
-verify above 4096 sets has run on the card, where the JAX warmer also
-warms 8192 and 16384 (its ``max_n_bucket``).
+The grid stops at (4096, 4), the port's ``max_n_bucket``: the port has no
+chunked prep stage, and no verify above 4096 sets has run on the card,
+where the JAX warmer also warms 8192 and 16384 (its ``max_n_bucket``).
+
+As each rung's graphs are captured, the warmer tells the batch policy
+(``beacon_processor/processor.AdaptiveBatchPolicy``) that its bucket has
+run, so the batch former's growth cap rises behind it (JAX
+``warming.py:79-85``, ``:286-287``); without it the former stays capped at
+twice the largest bucket that has run, 128 sets at first.
 """
 
 import contextlib
@@ -59,12 +65,15 @@ def synthetic_batch(n_bucket: int, k_bucket: int, m_bucket: int, device) -> tupl
 
 
 class ShapeWarmer:
-    """Captures the bucket graphs of `shapes` in a daemon thread. `warmed`
-    lists the (n, k) rungs done, `captured` (graph name, capture stats) for
-    each graph this warmer captured, `failed` ((n, k), traceback) for each
-    rung that raised: it is left for first use, as in JAX."""
+    """Captures the bucket graphs of `shapes` in a daemon thread, and calls
+    `policy.note_ran(n)` as each rung is done. `warmed` lists the (n, k)
+    rungs done, `captured` (graph name, capture stats) for each graph this
+    warmer captured, `failed` ((n, k), traceback) for each rung that
+    raised: it is left for first use, as in JAX."""
 
-    def __init__(self, shapes: Sequence[Tuple[int, int]] = DEFAULT_SHAPE_GRID, device=None):
+    def __init__(self, policy=None, shapes: Sequence[Tuple[int, int]] = DEFAULT_SHAPE_GRID,
+                 device=None):
+        self.policy = policy
         self.shapes = tuple(shapes)
         self.device = lb.default_device(device)
         self.warmed: list = []
@@ -113,3 +122,5 @@ class ShapeWarmer:
                     self.failed.append(((n_bucket, k_bucket), traceback.format_exc()))
                     continue
                 self.warmed.append((n_bucket, k_bucket))
+                if self.policy is not None:
+                    self.policy.note_ran(n_bucket)

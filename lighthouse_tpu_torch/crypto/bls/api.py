@@ -1,10 +1,12 @@
 """BLS signature API of the port: key and signature types, the backend
 registry, batch verification and poisoned-set isolation.
 
-Counterpart: ``lighthouse_tpu/crypto/bls/api.py`` (types; registry
-:303-341; ``find_invalid_sets`` :344). The types are copies; the registry
-holds one backend, ``"gpu"`` (``lighthouse_tpu_torch.ops.backend``),
-imported on first use. Semantics match blst as the reference drives it
+Counterpart: ``lighthouse_tpu/crypto/bls/api.py`` (types; the oracle
+``verify_signature_sets_oracle`` :262-300; registry :303-341;
+``find_invalid_sets`` :344). The types are copies. The registry holds
+``"gpu"`` (``lighthouse_tpu_torch.ops.backend``, the default) and
+``"cpu"`` (the native verifier, ``cpu_backend``), each imported on first
+use. Semantics match blst as the reference drives it
 (crypto/bls/src/impls/blst.rs:36-118): random nonzero 64-bit batch scalars
 from the host CSPRNG (drawn in ops/backend.py), signatures subgroup-checked on use, infinity public
 keys rejected, and a failed batch as the caller's cue to isolate culprits.
@@ -12,12 +14,14 @@ keys rejected, and a failed batch as the caller's cue to isolate culprits.
 
 from __future__ import annotations
 
+import secrets
 from dataclasses import dataclass
 from typing import Optional, Sequence
 
 from . import curves as c
 from . import hash_to_curve as h2c
-from .constants import R
+from . import pairing as pr
+from .constants import RAND_BITS, R
 
 
 class BlsError(Exception):
@@ -60,6 +64,20 @@ class PublicKey:
         if not c.g1_in_subgroup(pt):
             raise BlsError("public key not in G1 subgroup")
         return cls(point=pt)
+
+
+@dataclass(frozen=True)
+class AggregatePublicKey:
+    point: Optional[tuple]
+
+    @classmethod
+    def aggregate(cls, pubkeys: Sequence[PublicKey]) -> "AggregatePublicKey":
+        if not pubkeys:
+            raise BlsError("cannot aggregate zero public keys")
+        acc = None
+        for pk in pubkeys:
+            acc = c.g1_add(acc, pk.point)
+        return cls(point=acc)
 
 
 @dataclass(frozen=True)
@@ -107,12 +125,65 @@ class SignatureSet:
     signing_keys: Sequence[PublicKey]
     message: bytes
 
+    def aggregate_pubkey(self) -> Optional[tuple]:
+        if not self.signing_keys:
+            return None
+        return AggregatePublicKey.aggregate(self.signing_keys).point
+
+
+# ---------------------------------------------------------------------------
+# The oracle: host batch verification in Python integers
+# ---------------------------------------------------------------------------
+
+
+def _sig_in_subgroup(sig) -> bool:
+    return getattr(sig, "subgroup_checked", False) or c.g2_in_subgroup(sig.point)
+
+
+def _random_batch_scalar() -> int:
+    while True:
+        k = secrets.randbits(RAND_BITS)
+        if k:
+            return k
+
+
+def verify_signature_sets_oracle(sets: Sequence[SignatureSet]) -> bool:
+    """Random-scalar batch verification (Vitalik's scheme), semantics of
+    blst's verify_multiple_aggregate_signatures as driven by
+    crypto/bls/src/impls/blst.rs:36-118:
+
+        prod_i e(r_i * agg_pk_i, H(m_i)) * e(-g1, sum_i r_i * sig_i) == 1
+
+    with r_i random nonzero 64-bit scalars. About 0.1 s a pairing: the
+    native ``cpu`` backend hands it the sets its ABI does not carry.
+    """
+    if not sets:
+        return False
+    pairs = []
+    sig_acc = None
+    for s in sets:
+        if not s.signing_keys:
+            return False
+        if s.signature.point is None:
+            return False
+        if not _sig_in_subgroup(s.signature):
+            return False
+        agg_pk = s.aggregate_pubkey()
+        if agg_pk is None:
+            return False
+        r = _random_batch_scalar()
+        pairs.append((c.g1_mul(agg_pk, r), h2c.hash_to_g2(s.message)))
+        sig_acc = c.g2_add(sig_acc, c.g2_mul(s.signature.point, r))
+    pairs.append((c.g1_neg(c.G1_GEN), sig_acc))
+    return pr.pairings_product_is_one(pairs)
+
 
 # ---------------------------------------------------------------------------
 # Backend seam
 # ---------------------------------------------------------------------------
 
 _BACKENDS: dict = {}
+_active_backend = "gpu"
 
 
 def register_backend(name: str, fn) -> None:
@@ -123,20 +194,34 @@ def register_backend(name: str, fn) -> None:
 def _resolve(name: str):
     if name == "gpu" and name not in _BACKENDS:
         from ...ops import backend as _gpu_backend  # noqa: F401
+    if name == "cpu" and name not in _BACKENDS:
+        # Lazy: the native verifier is built on its first verify.
+        from . import cpu_backend as _cpu_backend  # noqa: F401
     if name not in _BACKENDS:
         raise BlsError(f"unknown BLS backend: {name}")
     return _BACKENDS[name]
 
 
-def verify_signature_sets(sets: Sequence[SignatureSet], backend: str = "gpu",
+def set_backend(name: str) -> None:
+    """Make `name` the backend of calls that name none."""
+    global _active_backend
+    _resolve(name)
+    _active_backend = name
+
+
+def get_backend() -> str:
+    return _active_backend
+
+
+def verify_signature_sets(sets: Sequence[SignatureSet], backend: Optional[str] = None,
                           device=None) -> bool:
-    """Batch-verify signature sets (on the card unless device says
-    otherwise). On False, callers isolate the poisoned sets
-    (find_invalid_sets)."""
-    return bool(_resolve(backend)(list(sets), device=device))
+    """Batch-verify signature sets on `backend` (default: the active one,
+    "gpu", on the card unless device says otherwise). On False, callers
+    isolate the poisoned sets (find_invalid_sets)."""
+    return bool(_resolve(backend or _active_backend)(list(sets), device=device))
 
 
-def find_invalid_sets(sets: Sequence[SignatureSet], backend: str = "gpu",
+def find_invalid_sets(sets: Sequence[SignatureSet], backend: Optional[str] = None,
                       device=None) -> list:
     """Indices of the invalid sets, by bisection: a failing range splits in
     two and each failing half recurses (~2 log2(n) k batch calls for k

@@ -20,14 +20,24 @@ Miller-loop pair), with r_i nonzero 64-bit scalars from the host CSPRNG:
 
 Staging pads sets to power-of-two buckets (infinity pubkeys and masked
 sets) and quantizes the distinct-message count to M_BUCKET_SHIFTS, as the
-JAX backend does. There is no small-batch CPU route: every batch runs on
-the device it is given.
+JAX backend does. It has a host half (``stage_host``: hashing, points to
+limbs, masks and scalars, all numpy) and a device half (``to_device``:
+pinned copies that do not block), so that staging the next batch never
+waits for the device. Every batch runs on the device it is given: the
+choice of the native CPU route belongs to the serving router
+(``serving/router.py``, its ``small`` rule).
 
 Each stage is a CUDA graph per bucket (``ops/graphs.py``), as each is a
 jit per bucket in JAX (``ops/bm/backend.py:234-335``): stage 1 and stage 3
 per m bucket, shared by every (n, k), and stage 2 per (n, k, m,
 all_checked). ``graph_core`` chains them; ``core`` is the eager function
-they capture.
+they capture. Both time their stages through ``observability/stages.py``
+(engine ``gpu``) while stage timing is on.
+
+``verify_signature_sets_gpu_async`` (JAX ``ops/backend.py:244-253``)
+returns a ``PendingVerdict`` without waiting for the device, so that the
+host stages batch i + 1 while the card runs batch i;
+``verify_signature_sets_gpu`` is its ``bool``.
 """
 
 import secrets
@@ -40,6 +50,7 @@ from ..crypto.bls import api as _api
 from ..crypto.bls import curves as _oc
 from ..crypto.bls.constants import P as _P
 from ..crypto.bls.constants import RAND_BITS as _RAND_BITS
+from ..observability import stages
 from . import curves as cv
 from . import graphs
 from . import h2c
@@ -48,6 +59,14 @@ from . import pairing as pr
 
 # The distinct-message bucket menu, as shifts off n_bucket (m = n >> s).
 M_BUCKET_SHIFTS = (8, 6, 4, 2, 0)
+
+
+def max_n_bucket() -> int:
+    """The largest n bucket the port serves and warms: 4096. Its prepare
+    stage is monolithic at every n, and no verify above 4096 sets has run
+    on the card; the JAX engine's 16384 rests on its chunked prep stage
+    (ROADMAP A13)."""
+    return 4096
 
 
 def _next_pow2(n: int, floor: int = 1) -> int:
@@ -80,10 +99,10 @@ def draw_scalars(n: int, n_bucket: int) -> np.ndarray:
     return scalars.view(np.int64)
 
 
-def stage(sets, device, scalars=None):
-    """Stage a batch into batch-minor device tensors. Returns (args,
-    m_bucket, all_sigs_checked); `scalars` (n_bucket,) overrides the CSPRNG
-    draw for deterministic callers."""
+def stage_host(sets, scalars=None):
+    """The host half of staging: a batch -> (the eight staged arrays in
+    numpy, m_bucket, all_sigs_checked). `scalars` (n_bucket,) overrides the
+    CSPRNG draw for deterministic callers."""
     n = len(sets)
     n_bucket = _next_pow2(n)
     k_bucket = _next_pow2(max(len(s.signing_keys) for s in sets))
@@ -93,8 +112,8 @@ def stage(sets, device, scalars=None):
     for i, s in enumerate(sets):
         inv_idx[i] = uniq.setdefault(bytes(s.message), len(uniq))
     m_bucket = _m_bucket_for(n_bucket, len(uniq))
-    u = torch.zeros((2, 2, lb.L, m_bucket), dtype=lb.DTYPE, device=device)
-    u[..., :len(uniq)] = h2c.hash_to_field_limbs(list(uniq), device)
+    u = np.zeros((2, 2, lb.L, m_bucket), dtype=np.int32)
+    u[..., :len(uniq)] = h2c.hash_to_field_limbs_np(list(uniq))
     row_mask = np.zeros((m_bucket,), dtype=bool)
     row_mask[:len(uniq)] = True
 
@@ -105,12 +124,11 @@ def stage(sets, device, scalars=None):
     pk_pts += [None] * ((n_bucket - n) * k_bucket)
     # Flat order is (set, slot), slot fastest: split the minor axis and
     # move the slot axis to the front -> (K, 3, 12, n).
-    pk_proj = torch.movedim(
-        cv.g1_from_affine(pk_pts, device).reshape(3, lb.L, n_bucket, k_bucket), -1, 0
-    ).contiguous()
+    pk_proj = np.ascontiguousarray(np.moveaxis(
+        cv.g1_from_affine_np(pk_pts).reshape(3, lb.L, n_bucket, k_bucket), -1, 0))
 
     sig_pts = [s.signature.point for s in sets] + [None] * (n_bucket - n)
-    sig_proj = cv.g2_from_affine(sig_pts, device)
+    sig_proj = cv.g2_from_affine_np(sig_pts)
 
     sig_checked = np.ones((n_bucket,), dtype=bool)
     sig_checked[:n] = [s.signature.subgroup_checked for s in sets]
@@ -118,13 +136,27 @@ def stage(sets, device, scalars=None):
     set_mask[:n] = True
     if scalars is None:
         scalars = draw_scalars(n, n_bucket)
+    scalars = np.ascontiguousarray(np.asarray(scalars).view(np.int64))
+    host = (u, inv_idx, row_mask, pk_proj, sig_proj, sig_checked, set_mask, scalars)
+    return host, m_bucket, bool(sig_checked.all())
 
-    def dev(x):
-        return torch.as_tensor(np.asarray(x)).to(device)
 
-    args = (u, dev(inv_idx), dev(row_mask), pk_proj, sig_proj, dev(sig_checked),
-            dev(set_mask), dev(np.asarray(scalars).view(np.int64)))
-    return args, m_bucket, bool(sig_checked.all())
+def to_device(host, device) -> tuple:
+    """The device half of staging: numpy arrays -> tensors on `device`. On
+    the card each array is pinned and copied without blocking, queued on
+    the current stream, so that the host goes on while the card still
+    runs the batch before (a pageable copy would wait for it)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return tuple(torch.from_numpy(x).to(device) for x in host)
+    return tuple(torch.from_numpy(x).pin_memory().to(device, non_blocking=True) for x in host)
+
+
+def stage(sets, device, scalars=None):
+    """Stage a batch into batch-minor device tensors: stage_host, then
+    to_device. Returns (args, m_bucket, all_sigs_checked)."""
+    host, m_bucket, all_checked = stage_host(sets, scalars)
+    return to_device(host, device), m_bucket, all_checked
 
 
 @lru_cache(maxsize=None)
@@ -217,11 +249,15 @@ def _pairing_check(p_proj, h_unique, s_proj, row_mask, sets_valid):
 
 def core(u, inv_idx, row_mask, pk_proj, sig_proj, sig_checked, set_mask, scalars,
          m_bucket: int, all_checked: bool = False):
-    """The three stages on staged tensors -> () bool tensor."""
-    h_unique = _h2g2(u)
-    p_proj, s_proj, sets_valid = _prepare(pk_proj, sig_proj, sig_checked, set_mask,
-                                          scalars, inv_idx, m_bucket, all_checked)
-    return _pairing_check(p_proj, h_unique, s_proj, row_mask, sets_valid)
+    """The three stages on staged tensors -> () bool tensor, each stage
+    timed while stage timing is on."""
+    shape = dict(n=sig_proj.shape[-1], k=pk_proj.shape[0], m=m_bucket, all_checked=all_checked)
+    prepare = partial(_prepare, m_bucket=m_bucket, all_checked=all_checked)
+    h_unique = stages.traced("gpu", "h2g2", _h2g2, **shape)(u)
+    p_proj, s_proj, sets_valid = stages.traced("gpu", "prepare", prepare, **shape)(
+        pk_proj, sig_proj, sig_checked, set_mask, scalars, inv_idx)
+    return stages.traced("gpu", "pairing", _pairing_check, **shape)(
+        p_proj, h_unique, s_proj, row_mask, sets_valid)
 
 
 # --- CUDA-graph stages per bucket --------------------------------------------
@@ -266,10 +302,40 @@ def _prepare_graph(n_bucket: int, k_bucket: int, m_bucket: int, all_checked: boo
                               graphs.pool("bls_prepare", m_bucket, device))
 
 
+class PendingVerdict:
+    """A batch's verdict on its way back from the card. Made under the
+    bucket's lock right after the batch's last replay: it queues a copy of
+    the static verdict into pinned host memory of its own (the next
+    replay overwrites the static one) and records an event after it.
+    ``bool()`` waits on that event and on nothing else, reads the copy,
+    and observes the stage times recorded so far that have completed
+    (``stages.settle``). On the CPU the verdict is there at once."""
+
+    def __init__(self, verdict: torch.Tensor):
+        if verdict.device.type != "cuda":
+            self._value = bool(verdict)
+            return
+        self._value = None
+        stream = torch.cuda.current_stream(verdict.device)
+        self._host = torch.empty((), dtype=torch.bool, pin_memory=True)
+        self._host.copy_(verdict, non_blocking=True)
+        self._event = torch.cuda.Event()
+        self._event.record(stream)
+
+    def __bool__(self) -> bool:
+        if self._value is None:
+            self._event.synchronize()
+            self._value = bool(self._host)
+            stages.settle()
+        return self._value
+
+
 class GraphCore:
     """The stage graphs of one (n, k, m, all_checked) bucket, chained as
-    ``core`` chains the stages (``jitted_core``'s counterpart). A call
-    returns the static verdict tensor: read it while holding ``lock``."""
+    ``core`` chains the stages (``jitted_core``'s counterpart), every graph
+    replayed on the caller's stream. A call returns the static verdict
+    tensor: read it while holding ``lock``; ``dispatch`` returns a
+    PendingVerdict instead, and lets go of the lock at once."""
 
     def __init__(self, n_bucket: int, k_bucket: int, m_bucket: int, all_checked: bool, device):
         self.h2g2 = _stage1_graph(m_bucket, device)
@@ -277,13 +343,28 @@ class GraphCore:
         self.pairing = _stage3_graph(m_bucket, device)
         self.graphs = (self.h2g2, self.prepare, self.pairing)
         self.lock = self.h2g2.lock
+        shape = dict(n=n_bucket, k=k_bucket, m=m_bucket, all_checked=all_checked)
+        self._stages = tuple(stages.traced("gpu", stage, g, **shape) for stage, g in
+                             zip(("h2g2", "prepare", "pairing"), self.graphs))
 
     def __call__(self, u, inv_idx, row_mask, pk_proj, sig_proj, sig_checked, set_mask, scalars):
+        h2g2, prepare, pairing = self._stages
         with self.lock:
-            h_unique = self.h2g2(u)
-            p_proj, s_proj, sets_valid = self.prepare(pk_proj, sig_proj, sig_checked, set_mask,
-                                                      scalars, inv_idx)
-            return self.pairing(p_proj, h_unique, s_proj, row_mask, sets_valid)
+            h_unique = h2g2(u)
+            p_proj, s_proj, sets_valid = prepare(pk_proj, sig_proj, sig_checked, set_mask,
+                                                 scalars, inv_idx)
+            return pairing(p_proj, h_unique, s_proj, row_mask, sets_valid)
+
+    def dispatch(self, *args) -> PendingVerdict:
+        """Replay the bucket on the staged `args` and return the pending
+        verdict, without waiting for the device."""
+        with self.lock:
+            pending = PendingVerdict(self(*args))
+            if self.h2g2.device.type == "cuda":
+                # The verdict's copy reads a static output: the next holder
+                # of the lock, on any stream, waits for it.
+                self.lock.mark(torch.cuda.current_stream(self.h2g2.device))
+            return pending
 
 
 @graphs.cached
@@ -292,10 +373,13 @@ def graph_core(n_bucket: int, k_bucket: int, m_bucket: int, all_checked: bool, d
     return GraphCore(n_bucket, k_bucket, m_bucket, all_checked, torch.device(device))
 
 
-def verify_signature_sets_gpu(sets, device=None) -> bool:
-    """Batch-verify SignatureSets on `device` (default: the card) through
-    the batch's bucket graphs. Host early-outs match the oracle: empty
-    batch, a set without keys, an infinity signature."""
+def verify_signature_sets_gpu_async(sets, device=None):
+    """Dispatch a batch verify on `device` (default: the card) WITHOUT
+    waiting for it: stage the batch, replay its bucket's graphs, and return
+    a PendingVerdict, whose bool() is the verdict. Host early-outs return
+    a Python bool, as the oracle rejects: empty batch, a set without keys,
+    an infinity signature. A caller stages its next batch while the card
+    runs this one."""
     device = lb.default_device(device)
     sets = list(sets)
     if not sets:
@@ -306,8 +390,13 @@ def verify_signature_sets_gpu(sets, device=None) -> bool:
     args, m_bucket, all_checked = stage(sets, device)
     k_bucket, _, _, n_bucket = args[3].shape
     bucket = graph_core(n_bucket, k_bucket, m_bucket, all_checked, args[0].device)
-    with bucket.lock:
-        return bool(bucket(*args).item())
+    return bucket.dispatch(*args)
+
+
+def verify_signature_sets_gpu(sets, device=None) -> bool:
+    """Batch-verify SignatureSets on `device` (default: the card) through
+    the batch's bucket graphs: the async dispatch, waited on."""
+    return bool(verify_signature_sets_gpu_async(sets, device))
 
 
 _api.register_backend("gpu", verify_signature_sets_gpu)

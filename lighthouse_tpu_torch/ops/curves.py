@@ -20,6 +20,7 @@ holding the bit patterns of unsigned 64-bit values.
 
 from functools import lru_cache
 
+import numpy as np
 import torch
 
 from ..crypto.bls import curves as _oc
@@ -224,26 +225,39 @@ def _infinity(name: str, device):
 # --- Host staging (oracle affine <-> batch-minor projective) ---------------
 
 
-def g1_from_affine(pts, device) -> torch.Tensor:
-    """[(x, y) | None, ...] -> (3, 12, n); None is infinity (0 : 1 : 0)."""
+def g1_from_affine_np(pts) -> np.ndarray:
+    """[(x, y) | None, ...] -> (3, 12, n) int32 limbs (numpy); None is
+    infinity (0 : 1 : 0)."""
     xs, ys, zs = [], [], []
     for pt in pts:
         if pt is None:
             xs.append(0), ys.append(1), zs.append(0)
         else:
             xs.append(pt[0]), ys.append(pt[1]), zs.append(1)
-    return torch.stack([lb.ints_to_limbs(v, device) for v in (xs, ys, zs)])
+    flat = lb.ints_to_limbs_np(xs + ys + zs)
+    return np.ascontiguousarray(flat.reshape(lb.L, 3, len(xs)).transpose(1, 0, 2))
+
+
+def g2_from_affine_np(pts) -> np.ndarray:
+    """[((x0, x1), (y0, y1)) | None, ...] -> (3, 2, 12, n) int32 limbs
+    (numpy); None is infinity (0 : 1 : 0)."""
+    cols = [[] for _ in range(6)]      # X0, X1, Y0, Y1, Z0, Z1
+    for pt in pts:
+        (x0, x1), (y0, y1), z0 = ((0, 0), (1, 0), 0) if pt is None else (pt[0], pt[1], 1)
+        for col, v in zip(cols, (x0, x1, y0, y1, z0, 0)):
+            col.append(v)
+    flat = lb.ints_to_limbs_np([v for col in cols for v in col])
+    return np.ascontiguousarray(np.moveaxis(flat.reshape(lb.L, 3, 2, len(cols[0])), 0, 2))
+
+
+def g1_from_affine(pts, device) -> torch.Tensor:
+    """g1_from_affine_np on `device`."""
+    return torch.from_numpy(g1_from_affine_np(pts)).to(device)
 
 
 def g2_from_affine(pts, device) -> torch.Tensor:
-    """[((x0, x1), (y0, y1)) | None, ...] -> (3, 2, 12, n)."""
-    X, Y, Z = [], [], []
-    for pt in pts:
-        if pt is None:
-            X.append((0, 0)), Y.append((1, 0)), Z.append((0, 0))
-        else:
-            X.append(pt[0]), Y.append(pt[1]), Z.append((1, 0))
-    return torch.stack([tw.fp2_from_int_pairs(v, device) for v in (X, Y, Z)])
+    """g2_from_affine_np on `device`."""
+    return torch.from_numpy(g2_from_affine_np(pts)).to(device)
 
 
 def to_affine_ints(pts, group: str) -> list:

@@ -24,15 +24,21 @@ smaller batch leaves nothing of a larger one), then:
 - on the CPU, which a caller must ask for, the function runs on the static
   inputs, uncaptured, and its results become the outputs.
 
-Threads: every call holds the graph's lock (an ``RLock``, shared by graphs
-whose buffers a chain passes between them: ``key_lock``). A caller holds it
-until it has read the outputs and the device has finished with the graphs
-(reading a value off the device does both), since the next holder may use
-another stream. Static inputs are allocated uninitialised (every call
-overwrites them), so no fill kernel races on another stream. One warm-up
-and capture runs at a time in the process (``_CAPTURE``), and each thread
-captures on a stream of its own in ``thread_local`` mode, so a thread may
-replay while another captures.
+Threads and streams: every call holds the graph's lock (a ``GraphLock``,
+shared by graphs whose buffers a chain passes between them: ``key_lock``).
+A caller holds it until it has queued its reads of the outputs. The lock
+also orders the device work of its holders: a call first makes its stream
+wait for the event that ends the last work queued under the lock (its
+``tail``), and records a new tail after its replay; a caller that queues
+reads of the outputs after that records the tail again (``mark``). So a
+holder on another stream (the warmer's) never overwrites the static
+inputs, the outputs or the shared pool while earlier work still uses them,
+and a caller may let go of the lock before the device has run its graphs
+(the async verify). No one waits on the host for it. Static inputs are
+allocated uninitialised (every call overwrites them), so no fill kernel
+races on another stream. One warm-up and capture runs at a time in the
+process (``_CAPTURE``), and each thread captures on a stream of its own in
+``thread_local`` mode, so a thread may replay while another captures.
 """
 
 import ctypes
@@ -51,12 +57,39 @@ _LOCAL = threading.local()
 _LIBCUDA = []
 
 
-def key_lock(key) -> threading.RLock:
+class GraphLock:
+    """A reentrant lock over a set of graphs, and the CUDA event that ends
+    the last device work queued under it (module docstring)."""
+
+    def __init__(self):
+        self._lock = threading.RLock()
+        self._tail = None       # (event, stream) of the last work queued
+
+    def __enter__(self) -> "GraphLock":
+        self._lock.acquire()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._lock.release()
+
+    def follow(self, stream) -> None:
+        """Queue on `stream` a wait for the last work under the lock (held)."""
+        if self._tail is not None and self._tail[1] != stream:
+            stream.wait_event(self._tail[0])
+
+    def mark(self, stream) -> None:
+        """Record on `stream` the end of the work queued so far (held)."""
+        event = torch.cuda.Event()
+        event.record(stream)
+        self._tail = (event, stream)
+
+
+def key_lock(key) -> GraphLock:
     """The one lock of `key` in this process."""
     with _LOCKS_GUARD:
         lock = _LOCKS.get(key)
         if lock is None:
-            lock = _LOCKS[key] = threading.RLock()
+            lock = _LOCKS[key] = GraphLock()
         return lock
 
 
@@ -148,7 +181,7 @@ class StaticGraph:
         self.device = torch.device(device)
         self.inputs = tuple(torch.empty(shape, dtype=dtype, device=self.device)
                             for shape, dtype in specs)
-        self.lock = threading.RLock() if lock is None else lock
+        self.lock = GraphLock() if lock is None else lock
         self.pool = pool
         self.graph = None
         self.outputs = None
@@ -166,15 +199,19 @@ class StaticGraph:
                 raise ValueError(f"{self.name}: input {i} is {got}, the static input is "
                                  f"{(tuple(dst.shape), dst.dtype, dst.device)}")
         with self.lock:
+            stream = torch.cuda.current_stream(self.device) if self.device.type == "cuda" else None
+            if stream is not None:
+                self.lock.follow(stream)
             for src, dst in zip(args, self.inputs):
                 dst.copy_(src)
             self.calls += 1
-            if self.device.type != "cuda":
+            if stream is None:
                 self.outputs = self.fn(*self.inputs)
                 return self.outputs
             if self.graph is None:
                 self._capture()
             self.graph.replay()
+            self.lock.mark(stream)
             return self.outputs
 
     def _capture(self) -> None:

@@ -12,6 +12,7 @@ minor.
 
 from functools import lru_cache
 
+import numpy as np
 import torch
 
 from ..crypto.bls import hash_to_curve as oh2c
@@ -53,14 +54,17 @@ def consts(device) -> _Consts:
 # --- Host staging -----------------------------------------------------------
 
 
-def hash_to_field_limbs(messages, device, dst: bytes = DST_G2) -> torch.Tensor:
-    """Host SHA-256 hash_to_field -> (2, 2, 12, m): element u0/u1, Fp2
-    component, limb, message."""
+def hash_to_field_limbs_np(messages, dst: bytes = DST_G2) -> np.ndarray:
+    """Host SHA-256 hash_to_field -> (2, 2, 12, m) int32 limbs (numpy):
+    element u0/u1, Fp2 component, limb, message."""
     us = [oh2c.hash_to_field_fp2(msg, 2, dst) for msg in messages]
-    return torch.stack([
-        torch.stack([lb.ints_to_limbs([u[e][c] for u in us], device) for c in range(2)])
-        for e in range(2)
-    ])
+    flat = lb.ints_to_limbs_np([u[e][c] for e in range(2) for c in range(2) for u in us])
+    return np.ascontiguousarray(np.moveaxis(flat.reshape(lb.L, 2, 2, len(us)), 0, 2))
+
+
+def hash_to_field_limbs(messages, device, dst: bytes = DST_G2) -> torch.Tensor:
+    """hash_to_field_limbs_np on `device`."""
+    return torch.from_numpy(hash_to_field_limbs_np(list(messages), dst)).to(device)
 
 
 # --- Device map -------------------------------------------------------------
