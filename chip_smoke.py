@@ -75,6 +75,25 @@ Phases, each printing one JSON line:
             every kernel the KZG runs launched against its plain version,
             bit for bit, at each operand shape they gave it (K3 at n = 2
             and 1, K1 at 2 n_bucket lanes).
+6b. single  the single verifications on the card. First verify,
+            aggregate_verify at k = SINGLE_K distinct messages and
+            verify_kzg_proof, each: a watched eager run (staging, then the
+            stage functions the graphs capture) records its operand shapes
+            and one more counts its launches; then the API's first call
+            (wall s, launches, the graphs it captured: none where the
+            verify phase had captured the bucket) and SINGLE_TIMED_CALLS
+            warm ones (wall ms, nothing launched from Python). Then the 6
+            verify, 3 fast_aggregate_verify and 2 aggregate_verify cases
+            under tests/vectors/general/phase0/bls/*/small through those
+            functions, the 3 deneb/kzg/verify_kzg_proof/small cases with
+            the production setup (a proof that fails to decompress is
+            False), verify_blob_kzg_proof on each by_root blob (True, each
+            timed) and on one with a changed field element (False), and
+            aggregate_verify at k = SINGLE_K with two messages swapped
+            (False).
+   single_shapes
+            every kernel the single path launched against its plain
+            version, bit for bit, at each operand shape it gave it.
 7. warmer   the port's ShapeWarmer over WARMER_RUNGS with every m of each,
             one headline verify run while it warms (True); then one more
             key captured on the main thread, to compare; each graph the
@@ -128,6 +147,21 @@ Phases, each printing one JSON line:
             SINGLE_JOBS single sets submitted alone: every job's verdict as
             expected; batches by route and size, close causes, deadline
             hits and misses, the router's learned table.
+
+11. control the serving control plane: an Autotuner over the serving
+            phase's scheduler, router and batch policy, stepped after each
+            of CONTROL_ROUNDS drains of the headline's sets (every verdict
+            True): each SLO evaluation and decision, then current_policy(),
+            saved to a temporary directory. Then two fresh processes
+            (chip_smoke.py --restart default|tuned <dir> <launch time>)
+            restart a node: import, load the kernel libraries and the native
+            verifier from their caches, warm DEFAULT_SHAPE_GRID, or
+            tuned_shape_grid(load_policy(dir)) after apply_policy, and verify
+            the headline batch through the router. Each prints the seconds
+            of each step, their sum (restart to the first verified batch),
+            and compile_events.counts(): no kernel_build, a kernel_cache_hit
+            a source, a graph_capture a graph of its grid, or it fails, and
+            so does the phase.
 
 Then the card's name and power limit, the kernel summary line (launches:
 the main path's first headline verify through the API, which runs each
@@ -1142,6 +1176,204 @@ def phase_kzg():
              lambda: _kzg_stages(kzg, *batches["by_root"])), (kzg, batches))
 
 
+# The single verifications: the timed calls a function, and aggregate_verify's
+# k, the headline's distinct-message count.
+SINGLE_TIMED_CALLS = 5
+SINGLE_K = HEADLINE["distinct"]
+
+
+def _hex(s):
+    return bytes.fromhex(s[2:] if s.startswith("0x") else s)
+
+
+def _single_bls_vectors(api):
+    """Every verify / fast_aggregate_verify / aggregate_verify case under
+    tests/vectors/general/phase0/bls/*/small through the function itself:
+    {case: verdict}. An input that fails to deserialize gives False, as the
+    spec's harness expects; the call itself is outside that catch."""
+    base = ROOT / "tests" / "vectors" / "general" / "phase0" / "bls"
+    cases = {}
+    for kind in ("verify", "fast_aggregate_verify", "aggregate_verify"):
+        for meta in sorted((base / kind / "small").glob("*/meta.json")):
+            case = json.loads(meta.read_text())
+            inp = case["input"]
+            try:
+                sig = api.Signature.from_bytes(_hex(inp["signature"]), subgroup_check=False)
+                pks = [api.PublicKey.from_bytes(_hex(pk))
+                       for pk in ([inp["pubkey"]] if kind == "verify" else inp["pubkeys"])]
+            except api.BlsError:
+                got = False
+            else:
+                if kind == "verify":
+                    got = api.verify(pks[0], _hex(inp["message"]), sig)
+                elif kind == "fast_aggregate_verify":
+                    got = api.fast_aggregate_verify(pks, _hex(inp["message"]), sig)
+                else:
+                    got = api.aggregate_verify(pks, [_hex(m) for m in inp["messages"]], sig)
+            if got != case["output"]:
+                raise AssertionError(f"{kind}/{meta.parent.name}: got {got}, want {case['output']}")
+            cases[f"{kind}/{meta.parent.name}"] = got
+    counts = collections.Counter(c.split("/")[0] for c in cases)
+    if counts != {"verify": 6, "fast_aggregate_verify": 3, "aggregate_verify": 2}:
+        raise AssertionError(f"BLS single vectors found: {dict(counts)}")
+    return cases
+
+
+def _single_kzg_vectors(kzg):
+    """The verify_kzg_proof vectors with the production [tau]G2: {case:
+    verdict}; a commitment or proof that fails to decompress gives False."""
+    from lighthouse_tpu_torch.crypto.bls import curves as oc
+
+    base = ROOT / "tests" / "vectors" / "general" / "deneb" / "kzg" / "verify_kzg_proof" / "small"
+    out = {}
+    for meta in sorted(base.glob("*/meta.json")):
+        case = json.loads(meta.read_text())
+        inp = case["input"]
+        try:
+            c, w = (oc.g1_from_compressed(_hex(inp[k])) for k in ("commitment", "proof"))
+        except ValueError:
+            got = False
+        else:
+            got = kzg.verify_kzg_proof(c, int(inp["z"], 16), int(inp["y"], 16), w)
+        if got is not case["output"]:
+            raise AssertionError(f"verify_kzg_proof/{meta.parent.name}: got {got}, "
+                                 f"want {case['output']}")
+        out[meta.parent.name] = got
+    if sorted(out) != ["malformed_proof", "valid", "wrong_y"]:
+        raise AssertionError(f"KZG single vectors found: {sorted(out)}")
+    return out
+
+
+def _single_eager(pk_points, messages, sig_point):
+    """A single verification's product on the eager path, uncaptured: its
+    staging, then stage 1 and stage 3 (the functions the graphs capture)."""
+    from lighthouse_tpu_torch.ops import backend
+
+    m_bucket = backend.single_m_bucket(len(messages))
+    u, p_proj, s_proj, mask = backend.to_device(
+        backend.stage_pairs(pk_points, messages, sig_point, m_bucket), DEVICE)
+    p_proj = torch.cat([p_proj, backend._neg_g1(p_proj.device)], dim=-1)
+    valid = torch.ones((), dtype=torch.bool, device=p_proj.device)
+    return bool(backend._pairing_check(p_proj, backend._h2g2(u), s_proj, mask, valid).item())
+
+
+def _kzg_single_eager(kzg, c, z, y, w):
+    """verify_kzg_proof on the eager path: the n = 1 staging and
+    ops/kzg._combine."""
+    from lighthouse_tpu_torch.ops import kzg as okzg
+
+    staged = okzg.stage([c], [z], [y], [w], 1, kzg.g2_tau, torch.device(DEVICE))
+    return bool(okzg._combine(*staged)[-1].item())
+
+
+def _single_api_runs(fn, what):
+    """fn's first call through the API and SINGLE_TIMED_CALLS warm ones,
+    the launch counts reset just before each and read just after: every
+    call True, no warm call launching from Python. -> (first-use s, its
+    launches, the graphs it captured, warm wall s)."""
+    from lighthouse_tpu_torch.ops import fused
+
+    def captured():
+        return {name for name, g in _all_graphs().items() if g.stats is not None}
+
+    before = captured()
+    fused.reset_launches()
+    ok, first_s = _timed_verify(fn)
+    first = {k: v for k, v in fused.launches.items() if v}
+    if ok is not True:
+        raise AssertionError(f"{what} did not verify on its first use")
+    walls = []
+    for _ in range(SINGLE_TIMED_CALLS):
+        fused.reset_launches()
+        ok, wall_s = _timed_verify(fn)
+        if ok is not True:
+            raise AssertionError(f"{what} did not verify warm")
+        if sum(fused.launches.values()):
+            raise AssertionError(f"a warm {what} launched {dict(fused.launches)} from Python")
+        walls.append(wall_s)
+    return first_s, first, sorted(captured() - before), walls
+
+
+def _ms_stats(walls):
+    return {"median_ms": 1e3 * statistics.median(walls), "min_ms": 1e3 * min(walls),
+            "max_ms": 1e3 * max(walls)}
+
+
+def phase_single(kzg_state, distinct):
+    """The single verifications (module docstring, phase 6b) -> the operand
+    shapes their eager runs gave each kernel."""
+    from lighthouse_tpu_torch.crypto import kzg as kz
+    from lighthouse_tpu_torch.crypto.bls import api
+    from lighthouse_tpu_torch.ops import fused
+
+    kzg, batches = kzg_state
+    blobs, commitments, proofs = batches["by_root"]
+    group = distinct[:SINGLE_K]
+    pks = [s.signing_keys[0] for s in group]
+    msgs = [s.message for s in group]
+    agg = api.Signature(point=api.AggregateSignature.aggregate(
+        [s.signature for s in group]).point, subgroup_checked=True)
+    one = group[0]
+    zs, ys, _ = kzg.batch_inputs(blobs[:1], commitments[:1], proofs[:1])
+    kzg_args = (commitments[0], zs[0], ys[0], proofs[0])
+    # First the timed functions, so that each first use is the function's
+    # own (verify_kzg_proof's n = 1 graph is new here; the BLS buckets
+    # m = 1 and m = SINGLE_K were captured by the verify phase).
+    cases = {
+        "verify": (lambda: api.verify(one.signing_keys[0], one.message, one.signature),
+                   lambda: _single_eager([one.signing_keys[0].point], [one.message],
+                                         one.signature.point)),
+        f"aggregate_verify_k{SINGLE_K}": (lambda: api.aggregate_verify(pks, msgs, agg),
+                                          lambda: _single_eager([p.point for p in pks], msgs,
+                                                                agg.point)),
+        "verify_kzg_proof": (lambda: kzg.verify_kzg_proof(*kzg_args),
+                             lambda: _kzg_single_eager(kzg, *kzg_args)),
+    }
+    shapes = {name: set() for name in fused.launches}
+    runs = {}
+    for name, (api_call, eager) in cases.items():
+        ok, rec, _, _ = _watched(eager)
+        for k, v in rec.items():
+            shapes[k] |= v
+        fused.reset_launches()
+        ok2 = eager()
+        per_eager = {k: v for k, v in fused.launches.items() if v}
+        if ok is not True or ok2 is not True:
+            raise AssertionError(f"{name} did not verify on the eager path")
+        first_s, first, new_graphs, walls = _single_api_runs(api_call, name)
+        runs[name] = {"first_use_s": first_s, "first_use_launches": first,
+                      "graphs_captured_at_first_use": new_graphs,
+                      "warm_wall": _ms_stats(walls), "warm_walls_s": walls,
+                      "warm_launches": 0, "launches_per_eager_call": per_eager}
+
+    t0 = time.perf_counter()
+    bls_vectors = _single_bls_vectors(api)
+    production = kz.Kzg.load_trusted_setup()
+    kzg_vectors = _single_kzg_vectors(production)
+    vectors_s = time.perf_counter() - t0
+
+    blob_verdicts, blob_walls = [], []
+    for b, c, w in zip(blobs, commitments, proofs):
+        ok, wall_s = _timed_verify(kzg.verify_blob_kzg_proof, b, c, w)
+        blob_verdicts.append(ok)
+        blob_walls.append(wall_s)
+    tampered = bytearray(blobs[1])
+    tampered[7 * 32 + 31] ^= 1
+    tampered_verdict = kzg.verify_blob_kzg_proof(bytes(tampered), commitments[1], proofs[1])
+    if blob_verdicts != [True] * len(blobs) or tampered_verdict is not False:
+        raise AssertionError(f"blob proofs {blob_verdicts}, tampered {tampered_verdict}")
+    swapped = [msgs[1], msgs[0]] + msgs[2:]
+    if api.aggregate_verify(pks, swapped, agg) is not False:
+        raise AssertionError(f"aggregate_verify at k = {SINGLE_K} with two messages swapped verified")
+    fused.reset_launches()
+    emit({"phase": "single", "gpu": nvidia_smi("name,power.limit"),
+          "bls_vectors": bls_vectors, "kzg_vectors": kzg_vectors, "vectors_s": vectors_s,
+          "blob_proofs": blob_verdicts, "blob_proof_walls_s": blob_walls,
+          "blob_proof_tampered": tampered_verdict,
+          f"aggregate_verify_k{SINGLE_K}_swapped": False, "runs": runs})
+    return shapes
+
+
 # The port's own kernels in a trace (csrc/*.cu, each in an anonymous
 # namespace): matched against the wrapper's launch counts.
 PORT_KERNEL = re.compile(r"^void \(anonymous namespace\)::(fp(_add|_mul|2|12)|curve)_kernel")
@@ -1734,10 +1966,11 @@ def _serving_scheduler(sets, poisoned_set, distinct):
     if verdicts != expected:
         wrong = [i for i, (v, e) in enumerate(zip(verdicts, expected)) if v != e]
         raise AssertionError(f"scheduler: {len(wrong)} jobs got the wrong verdict, first {wrong[:5]}")
+    router.verify = verify
     close = reg.counter_vec("serving_scheduler_close_total")
     routes = reg.counter_vec("serving_router_route_total")
     reasons = reg.counter_vec("serving_router_reason_total")
-    return {"warm_s": warm_s, "warmed": warmer.warmed, "graphs_captured": len(warmer.captured),
+    return (reg, sched), {"warm_s": warm_s, "warmed": warmer.warmed, "graphs_captured": len(warmer.captured),
             "batch_cap_before_warm": cap_before, "batch_cap_after_warm": policy.batch_limit(1 << 20),
             "jobs": len(verdicts), "verdicts_as_expected": True, "drain_s": drain_s,
             "batches_dispatched": drained, "batches": batches,
@@ -1753,13 +1986,178 @@ def _serving_scheduler(sets, poisoned_set, distinct):
 
 def phase_serving(sets, poisoned, distinct, stages_s):
     """The serving path in front of the card (module docstring, phase 10),
-    one line a part."""
+    one line a part. -> (the scheduler's registry, the scheduler)."""
     gpu = nvidia_smi("name,power.limit")
     emit({"phase": "serving", "gpu": gpu, "pipelined": _serving_pipeline(sets, poisoned)})
     emit({"phase": "serving", "gpu": gpu, "stages": _serving_stages(sets, stages_s)})
     emit({"phase": "serving", "gpu": gpu, "cpu_route": _serving_cpu_route(sets, distinct)})
-    emit({"phase": "serving", "gpu": gpu,
-          "scheduler": _serving_scheduler(sets, poisoned[69], distinct)})
+    stack, scheduler = _serving_scheduler(sets, poisoned[69], distinct)
+    emit({"phase": "serving", "gpu": gpu, "scheduler": scheduler})
+    return stack
+
+
+# The control phase: rounds of headline traffic, each drained, with an
+# autotuner step after each; then two restarts.
+CONTROL_ROUNDS = 6
+RESTART_TIMEOUT_S = 600
+
+
+def _point_json(pt):
+    return [_point_json(v) for v in pt] if isinstance(pt, tuple) else pt
+
+
+def _point_tuple(pt):
+    return tuple(_point_tuple(v) for v in pt) if isinstance(pt, list) else pt
+
+
+def _grid_graphs(grid):
+    """The stage graphs a warm of `grid` captures: a prepare graph per (n, k,
+    m) and a stage-1 and a stage-3 graph per m, m over each rung's menu."""
+    from lighthouse_tpu_torch.beacon_processor.warming import m_menu
+
+    keys = set()
+    for n, k in grid:
+        for m in m_menu(n):
+            keys |= {("prepare", n, k, m), ("h2g2", m), ("pairing", m)}
+    return len(keys)
+
+
+def _restart(mode, bundle_dir):
+    """One fresh process restarting as `mode` (chip_smoke.py --restart):
+    its JSON line. A failed process fails the phase."""
+    launched = time.time()
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--restart", mode,
+                           bundle_dir, repr(launched)], capture_output=True, text=True,
+                          timeout=RESTART_TIMEOUT_S, cwd=ROOT)
+    if proc.returncode != 0:
+        raise AssertionError(f"the {mode} restart exited {proc.returncode}: "
+                             f"{proc.stderr[-4000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def phase_control(stack, sets):
+    """The serving control plane (module docstring, phase 11): the
+    autotuner over the serving phase's scheduler, router and batch policy
+    between drains of the headline; its policy saved; two restarts, one
+    warming DEFAULT_SHAPE_GRID, one the tuned grid."""
+    import shutil
+    import tempfile
+
+    from lighthouse_tpu_torch.observability.slo import SloEngine
+    from lighthouse_tpu_torch.observability.timeseries import TimeSeries
+    from lighthouse_tpu_torch.serving.autotune import Autotuner
+    from lighthouse_tpu_torch.serving.scheduler import VerifyJob
+
+    reg, sched = stack
+    ts = TimeSeries(reg)
+    slo = SloEngine(ts, registry=reg)
+    tuner = Autotuner(scheduler=sched, batch_policy=sched.policy, timeseries=ts, slo=slo,
+                      registry=reg)
+    rounds = [{"round": "before", "decisions": [d.as_dict() for d in
+                                                tuner.step(now=time.monotonic())]}]
+    for i in range(CONTROL_ROUNDS):
+        verdicts = []
+        t0 = time.perf_counter()
+        for s in sets:
+            if not sched.submit(VerifyJob("gossip_aggregate", s, verdicts.append)):
+                raise AssertionError("the scheduler dropped a headline job")
+        batches = sched.run_until_idle()
+        drain_s = time.perf_counter() - t0
+        if verdicts != [True] * len(sets):
+            raise AssertionError(f"control round {i}: {verdicts.count(False)} headline jobs False")
+        decisions = tuner.step(now=time.monotonic())
+        rounds.append({"round": i, "batches": batches, "drain_s": drain_s,
+                       "slo": slo.snapshot(), "decisions": [d.as_dict() for d in decisions]})
+    policy = tuner.current_policy()
+    bundle = tempfile.mkdtemp(prefix="chip_smoke_policy_")
+    try:
+        tuner.save(bundle)
+        base = sets[:HEADLINE["distinct"]]
+        with open(os.path.join(bundle, "sets.json"), "w") as f:
+            json.dump([{"pks": [_point_json(pk.point) for pk in s.signing_keys],
+                        "sig": _point_json(s.signature.point), "msg": s.message.hex()}
+                       for s in base], f)
+        restarts = {mode: _restart(mode, bundle) for mode in ("default", "tuned")}
+    finally:
+        shutil.rmtree(bundle, ignore_errors=True)
+    emit({"phase": "control", "gpu": nvidia_smi("name,power.limit"), "rounds": rounds,
+          "policy": policy, "restarts": restarts})
+
+
+def restart_main(mode, bundle_dir, launched_unix) -> int:
+    """A restarted node (phase_control's subprocess): import, load the
+    kernel libraries and the native verifier from their caches, apply the
+    saved policy ("tuned") or not ("default"), warm that grid, then verify
+    the headline batch through the router. Prints one JSON line: the time
+    of each step, their sum (restart to the first verified batch), and the
+    provenance counts after the warm and after the batch."""
+    t_main = time.time()
+    out = {"mode": mode, "process_start_to_main_s": t_main - float(launched_unix)}
+    t0 = time.perf_counter()
+    from lighthouse_tpu_torch.beacon_processor import warming
+    from lighthouse_tpu_torch.beacon_processor.processor import AdaptiveBatchPolicy
+    from lighthouse_tpu_torch.common import metrics
+    from lighthouse_tpu_torch.common.slot_clock import SystemTimeSlotClock
+    from lighthouse_tpu_torch.crypto.bls import api, cpu_backend
+    from lighthouse_tpu_torch.observability import compile_events
+    from lighthouse_tpu_torch.ops import _build
+    from lighthouse_tpu_torch.serving import aot, autotune
+    from lighthouse_tpu_torch.serving.router import CostModelRouter
+    from lighthouse_tpu_torch.serving.scheduler import ContinuousBatchScheduler
+
+    t1 = time.perf_counter()
+    for name in _build.SOURCES:
+        _build.library(name)
+    t2 = time.perf_counter()
+    cpu_backend.get_lib()
+    t3 = time.perf_counter()
+    policy = AdaptiveBatchPolicy()
+    reg = metrics.Registry()
+    router = CostModelRouter(registry=reg)
+    clock = SystemTimeSlotClock(genesis_time=int(time.time()) - 1, seconds_per_slot=12)
+    sched = ContinuousBatchScheduler(clock, policy, router, registry=reg)
+    grid = warming.DEFAULT_SHAPE_GRID
+    if mode == "tuned":
+        tuned = aot.load_policy(bundle_dir)
+        out["applied"] = [d.as_dict() for d in autotune.apply_policy(
+            tuned, scheduler=sched, router=router, batch_policy=policy)]
+        grid = warming.tuned_shape_grid(tuned)
+    t4 = time.perf_counter()
+    warmer = warming.ShapeWarmer(policy=policy, shapes=grid, device=DEVICE).start()
+    warmer.join(timeout=RESTART_TIMEOUT_S)
+    t5 = time.perf_counter()
+    if warmer.failed or warmer.warmed != list(grid):
+        raise AssertionError(f"the warmer warmed {warmer.warmed} of {grid}: {warmer.failed}")
+    after_warm = compile_events.counts()
+    with open(os.path.join(bundle_dir, "sets.json")) as f:
+        base = [api.SignatureSet(
+            signature=api.Signature(point=_point_tuple(s["sig"]), subgroup_checked=True),
+            signing_keys=[api.PublicKey(point=_point_tuple(pk)) for pk in s["pks"]],
+            message=bytes.fromhex(s["msg"])) for s in json.load(f)]
+    sets = (base * (HEADLINE["n_sets"] // len(base) + 1))[:HEADLINE["n_sets"]]
+    t6 = time.perf_counter()
+    ok, route = router.verify(sets)
+    torch.cuda.synchronize()
+    t7 = time.perf_counter()
+    if ok is not True:
+        raise AssertionError(f"the {mode} restart's first headline batch gave {ok} ({route})")
+    expected = _grid_graphs(grid)
+    if after_warm["graph_capture"] != expected or after_warm["kernel_build"] \
+            or after_warm["kernel_cache_hit"] != len(_build.SOURCES):
+        raise AssertionError(f"the {mode} restart's provenance {after_warm}, expected "
+                             f"{expected} graph captures and {len(_build.SOURCES)} cache hits")
+    steps = {"import_s": t1 - t0, "kernel_libraries_s": t2 - t1, "native_s": t3 - t2,
+             "warm_grid_s": t5 - t4, "first_batch_s": t7 - t6}
+    out.update(steps, grid=[list(r) for r in grid], grid_graphs=expected,
+               setup_s=(t4 - t3) + (t6 - t5), route=route, verified=ok,
+               restart_to_first_verified_batch_s=out["process_start_to_main_s"]
+               + sum(steps.values()),
+               compile_events_after_warm=after_warm,
+               compile_events=compile_events.counts(),
+               capture_s=sum(st["warmup_s"] + st["capture_s"] + st["instantiate_s"]
+                             for _, st in warmer.captured))
+    emit(out)
+    return 0
 
 
 def _summary(kernels, by_shape, launches, shape_errs, launches_kzg, per_verify=None,
@@ -1798,6 +2196,9 @@ def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if argv[:1] == ["--restart"] and len(argv) == 4:
+        import lighthouse_tpu_torch  # noqa: F401
+        return restart_main(*argv[1:])
     if argv not in ([], ["--kernels-only"]):
         print(f"usage: chip_smoke.py [--kernels-only], not {argv}", file=sys.stderr)
         return 2
@@ -1818,11 +2219,16 @@ def main(argv) -> int:
     phase_vectors()
     launches_kzg, per_verify_kzg, kzg_shapes, kzg_by_root, kzg_state = phase_kzg()
     kzg_errs = phase_main_path_shapes(kzg_shapes, "kzg_shapes", KZG_REQUIRED)
-    errs = {k: max(shape_errs[k], kzg_errs.get(k, 0)) for k in shape_errs}
+    single_shapes = phase_single(kzg_state, distinct)
+    single_errs = phase_main_path_shapes(
+        single_shapes, "single_shapes", [k for k, v in single_shapes.items() if v])
+    errs = {k: max(shape_errs[k], kzg_errs.get(k, 0), single_errs.get(k, 0)) for k in shape_errs}
     phase_warmer(sets)
     phase_profile(headline, kzg_by_root)
     phase_graphs(sets, kzg_state)
-    phase_serving(sets, poisoned, distinct, _stage_seconds(headline[1](), "headline batch"))
+    stack = phase_serving(sets, poisoned, distinct,
+                          _stage_seconds(headline[1](), "headline batch"))
+    phase_control(stack, sets)
     summary = _summary(kernels, kernel_by_shape, launches, errs, launches_kzg, per_verify,
                        per_verify_kzg)
     emit({"phase": "done", "seconds": time.perf_counter() - t0})

@@ -21,6 +21,12 @@ As each rung's graphs are captured, the warmer tells the batch policy
 run, so the batch former's growth cap rises behind it (JAX
 ``warming.py:79-85``, ``:286-287``); without it the former stays capped at
 twice the largest bucket that has run, 128 sets at first.
+
+Each rung that takes the capture path is recorded as a
+``warm_capture_path`` event (``observability/compile_events``), as JAX's
+``warm_one`` records ``warm_compile_path``: the port has no warm bundle,
+so every rung takes it. ``tuned_shape_grid`` (JAX ``:50-73``) reads the
+grid a persisted autotune policy asks for (``serving/autotune.py``).
 """
 
 import contextlib
@@ -31,6 +37,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..observability import compile_events, trace
 from ..ops import backend
 from ..ops import limbs as lb
 
@@ -38,6 +45,32 @@ DEFAULT_SHAPE_GRID: Tuple[Tuple[int, int], ...] = (
     (64, 1), (64, 4), (256, 1), (256, 4), (1024, 1), (1024, 4),
     (2048, 1), (2048, 4), (4096, 4),
 )
+
+
+def tuned_shape_grid(policy: Optional[dict],
+                     default: Sequence[Tuple[int, int]] = DEFAULT_SHAPE_GRID,
+                     ) -> Tuple[Tuple[int, int], ...]:
+    """The warming grid a persisted autotune policy asks for (the
+    `warm_grid` facet of serving/autotune's TunedPolicy dict), or
+    `default` when the policy is absent/malformed — a restarted node
+    warms exactly the shapes its own traffic proved it needs instead of
+    the full static grid."""
+    if not isinstance(policy, dict):
+        return tuple(default)
+    grid = policy.get("warm_grid")
+    if not isinstance(grid, (list, tuple)) or not grid:
+        return tuple(default)
+    out = []
+    for pair in grid:
+        try:
+            n, k = pair
+            n, k = int(n), int(k)
+        except (TypeError, ValueError):
+            return tuple(default)
+        if n < 2 or k < 1:
+            return tuple(default)
+        out.append((n, k))
+    return tuple(out)
 
 
 def m_menu(n_bucket: int) -> list:
@@ -101,13 +134,15 @@ class ShapeWarmer:
 
     def warm_one(self, n_bucket: int, k_bucket: int) -> None:
         """Run every m bucket of one rung through its graphs, all_checked."""
-        for m_bucket in m_menu(n_bucket):
-            core = backend.graph_core(n_bucket, k_bucket, m_bucket, True, self.device)
-            args = synthetic_batch(n_bucket, k_bucket, m_bucket, self.device)
-            with core.lock:
-                fresh = [g for g in core.graphs if g.stats is None]
-                core(*args).item()      # lets go of the lock once the device is done
-            self.captured.extend((g.name, g.stats) for g in fresh if g.stats is not None)
+        with trace.span("warm_one", cat="warming", n=n_bucket, k=k_bucket):
+            compile_events.record("warm_capture_path", n=n_bucket, k=k_bucket)
+            for m_bucket in m_menu(n_bucket):
+                core = backend.graph_core(n_bucket, k_bucket, m_bucket, True, self.device)
+                args = synthetic_batch(n_bucket, k_bucket, m_bucket, self.device)
+                with core.lock:
+                    fresh = [g for g in core.graphs if g.stats is None]
+                    core(*args).item()      # lets go of the lock once the device is done
+                self.captured.extend((g.name, g.stats) for g in fresh if g.stats is not None)
 
     def _run(self) -> None:
         on_card = self.device.type == "cuda"

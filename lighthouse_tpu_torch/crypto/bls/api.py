@@ -1,12 +1,18 @@
 """BLS signature API of the port: key and signature types, the backend
 registry, batch verification and poisoned-set isolation.
 
-Counterpart: ``lighthouse_tpu/crypto/bls/api.py`` (types; the oracle
-``verify_signature_sets_oracle`` :262-300; registry :303-341;
-``find_invalid_sets`` :344). The types are copies. The registry holds
-``"gpu"`` (``lighthouse_tpu_torch.ops.backend``, the default) and
+Counterpart: ``lighthouse_tpu/crypto/bls/api.py`` (types; the single
+verifications ``verify``, ``fast_aggregate_verify``, ``aggregate_verify``
+:227-259; the oracle ``verify_signature_sets_oracle`` :262-300; registry
+:303-341; ``find_invalid_sets`` :344). The types are copies. The registry
+holds ``"gpu"`` (``lighthouse_tpu_torch.ops.backend``, the default) and
 ``"cpu"`` (the native verifier, ``cpu_backend``), each imported on first
-use. Semantics match blst as the reference drives it
+use, and ``"oracle"`` (the host verifier below) and ``"fake"`` (always
+True), which run on the host because the caller names them. The single
+verifications keep the JAX package's host early-outs and run their
+product of pairings on the card (``ops/backend.verify_pairs_gpu``), where
+the JAX package runs it on its host oracle. Semantics match blst as the
+reference drives it
 (crypto/bls/src/impls/blst.rs:36-118): random nonzero 64-bit batch scalars
 from the host CSPRNG (drawn in ops/backend.py), signatures subgroup-checked on use, infinity public
 keys rejected, and a failed batch as the caller's cue to isolate culprits.
@@ -140,6 +146,57 @@ def _sig_in_subgroup(sig) -> bool:
     return getattr(sig, "subgroup_checked", False) or c.g2_in_subgroup(sig.point)
 
 
+def _device(device):
+    """`device` resolved as every entry point resolves it: None is the card,
+    and raises without one, before any early-out."""
+    from ...ops import limbs as _limbs
+
+    return _limbs.default_device(device)
+
+
+def _verify_pairs(pk_points, messages, sig_point, device) -> bool:
+    from ...ops import backend as _gpu_backend
+
+    return _gpu_backend.verify_pairs_gpu(pk_points, messages, sig_point, device=device)
+
+
+def verify(pubkey: PublicKey, message: bytes, signature: Signature, device=None) -> bool:
+    """Single verification, e(pk, H(m)) * e(-g1, sig) == 1, the product on
+    `device` (default: the card)."""
+    device = _device(device)
+    if signature.point is None:
+        return False
+    if not _sig_in_subgroup(signature):
+        return False
+    return _verify_pairs([pubkey.point], [message], signature.point, device)
+
+
+def fast_aggregate_verify(pubkeys: Sequence[PublicKey], message: bytes, signature: Signature,
+                          device=None) -> bool:
+    """All keys sign the same message: aggregated on the host, then verify."""
+    device = _device(device)
+    if not pubkeys:
+        return False
+    agg = AggregatePublicKey.aggregate(pubkeys)
+    if agg.point is None:
+        return False
+    return verify(PublicKey(point=agg.point), message, signature, device=device)
+
+
+def aggregate_verify(pubkeys: Sequence[PublicKey], messages: Sequence[bytes],
+                     signature: Signature, device=None) -> bool:
+    """A message per key: prod_i e(pk_i, H(m_i)) * e(-g1, sig) == 1, the
+    product on `device` (default: the card)."""
+    device = _device(device)
+    if not pubkeys or len(pubkeys) != len(messages):
+        return False
+    if signature.point is None:
+        return False
+    if not _sig_in_subgroup(signature):
+        return False
+    return _verify_pairs([pk.point for pk in pubkeys], list(messages), signature.point, device)
+
+
 def _random_batch_scalar() -> int:
     while True:
         k = secrets.randbits(RAND_BITS)
@@ -182,7 +239,18 @@ def verify_signature_sets_oracle(sets: Sequence[SignatureSet]) -> bool:
 # Backend seam
 # ---------------------------------------------------------------------------
 
-_BACKENDS: dict = {}
+def _oracle_backend(sets, device=None) -> bool:
+    """Backend "oracle": the host verifier, whatever `device` says."""
+    return verify_signature_sets_oracle(sets)
+
+
+def _fake_backend(sets, device=None) -> bool:
+    """Backend "fake": unconditional success (the reference's fake_crypto,
+    crypto/bls/src/impls/fake_crypto.rs:29-33)."""
+    return True
+
+
+_BACKENDS: dict = {"oracle": _oracle_backend, "fake": _fake_backend}
 _active_backend = "gpu"
 
 

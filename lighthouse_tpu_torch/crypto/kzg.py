@@ -9,8 +9,10 @@ computes the challenges z_i, the evaluations y_i = p_i(z_i) and the batch
 challenge r here, on the host, as the JAX package does, and hands the G1
 combination and the 2-pair pairing check to the device
 (``ops/kzg.verify_kzg_batch_gpu``): the card by default, the kernels'
-plain versions with ``device="cpu"``. The single-proof verifies run only
-on the JAX package's host oracle and are not ported.
+plain versions with ``device="cpu"``. The single-proof verifies
+(``verify_kzg_proof``, ``verify_blob_kzg_proof``, JAX ``kzg.py:248-266``)
+are the same device check at n = 1, whose only weight is r^0 = 1, where
+the JAX package runs them on its host oracle.
 
 `Kzg.insecure_dev_setup(n)` derives a setup from a KNOWN tau, for tests
 and local nets only.
@@ -23,6 +25,7 @@ import json
 import os
 from typing import List, Optional, Sequence, Tuple
 
+from ..ops import limbs as _limbs
 from ..ops.kzg import verify_kzg_batch_gpu
 from .bls import curves as cv
 from .bls.constants import R
@@ -246,6 +249,25 @@ class Kzg:
                 self.blob_to_field_elements(blob), z
             ))
         return zs, ys, self._batch_challenge(commitments, zs, ys, proofs)
+
+    def verify_kzg_proof(self, commitment: tuple, z: int, y: int, proof: tuple,
+                         device=None) -> bool:
+        """e(C - yG1, -G2) * e(W, tau G2 - z G2) == 1, checked on `device`
+        (default: the card) as the batch check at n = 1:
+        e(C - yG1 + zW, -G2) * e(W, tau G2) == 1 is the same product."""
+        return verify_kzg_batch_gpu([commitment], [z], [y], [proof], 1, self.g2_tau,
+                                    device=device)
+
+    def verify_blob_kzg_proof(self, blob: bytes, commitment: tuple, proof: tuple,
+                              device=None) -> bool:
+        """The blob's challenge z and evaluation y = p(z) on the host, then
+        verify_kzg_proof on `device` (default: the card, resolved before
+        the host work, so that it raises without one)."""
+        device = _limbs.default_device(device)
+        z = self._challenge(blob, commitment)
+        evals = self.blob_to_field_elements(blob)
+        y = self.evaluate_polynomial(evals, z)
+        return self.verify_kzg_proof(commitment, z, y, proof, device=device)
 
     def verify_blob_kzg_proof_batch(
         self, blobs: Sequence[bytes], commitments: Sequence[tuple],

@@ -11,7 +11,9 @@ builds, the others then load its library. As in the JAX loader,
 ``-march=native`` code generation is tried first and portable code if
 that compile fails, and a library that will not load is rebuilt portable:
 these change compiler flags, not the route. A build that fails with both
-raises.
+raises. A library's first load in a process is recorded
+(``observability/compile_events``): ``native_build`` with its seconds when
+this process compiled it, ``native_cache_hit`` when it was built.
 """
 
 import ctypes
@@ -20,6 +22,9 @@ import hashlib
 import os
 import subprocess
 import threading
+import time
+
+from ..observability import compile_events
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_HERE, "src")
@@ -76,13 +81,20 @@ def load(name: str) -> ctypes.CDLL:
         os.makedirs(_BUILD, exist_ok=True)
         with open(os.path.join(_BUILD, f"{name}.lock"), "w") as lock:
             fcntl.flock(lock, fcntl.LOCK_EX)
-            if not os.path.exists(out):
+            t0 = time.perf_counter()
+            built = not os.path.exists(out)
+            if built:
                 _compile(src, out, native=True)
             try:
                 lib = ctypes.CDLL(out)
             except OSError:
                 # A library that will not load here: rebuild portable.
                 _compile(src, out, native=False)
+                built = True
                 lib = ctypes.CDLL(out)
+        if built:
+            compile_events.record("native_build", time.perf_counter() - t0, library=name)
+        else:
+            compile_events.record("native_cache_hit", library=name)
         _cache[name] = lib
         return lib

@@ -7,7 +7,10 @@ a changed source rebuilds and an unchanged one is reused. A source may
 include headers generated from Python (``GENERATED``): they are written
 beside its library and hashed with it. The first call to ``library``
 builds every source at once, one nvcc process each, all started together.
-Nothing is built or imported at module import.
+Nothing is built or imported at module import. Each source's first
+resolution in a process is recorded (``observability/compile_events``):
+``kernel_build`` with its seconds when this process compiled it,
+``kernel_cache_hit`` when its library was already built.
 """
 
 import ctypes
@@ -17,6 +20,8 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+
+from ..observability import compile_events
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
@@ -53,6 +58,14 @@ ENTRY_POINTS = {
 
 _LIBS: dict = {}
 BUILD_SECONDS: dict = {}
+_RESOLVED: set = set()      # sources whose provenance this process has recorded
+
+
+def _resolved(name: str, event: str, **args) -> None:
+    """Record how `name`'s library came to be, once a process."""
+    if name not in _RESOLVED:
+        _RESOLVED.add(name)
+        compile_events.record(event, source=name, **args)
 
 
 def _k3_plan_header() -> str:
@@ -105,6 +118,7 @@ def build_all() -> dict:
     for name in SOURCES:
         target = _target(name)
         if target.exists():
+            _resolved(name, "kernel_cache_hit")
             continue
         tmp = target.with_suffix(f".{os.getpid()}.tmp")
         gen = target.with_suffix(".gen")
@@ -124,6 +138,7 @@ def build_all() -> dict:
             failed.append(f"{name} (see {target.with_suffix('.log')})")
         else:
             os.replace(tmp, target)
+            _resolved(name, "kernel_build", seconds=BUILD_SECONDS[name])
     if failed:
         raise RuntimeError("nvcc failed: " + ", ".join(failed))
     return {name: BUILD_SECONDS[name] for name in procs}
@@ -145,6 +160,7 @@ def library(name: str) -> ctypes.CDLL:
         target = _target(name)
         if not target.exists():
             build_all()
+        _resolved(name, "kernel_cache_hit")
         lib = ctypes.CDLL(str(target))
         for fn_name, argtypes in ENTRY_POINTS[name].items():
             fn = getattr(lib, fn_name)

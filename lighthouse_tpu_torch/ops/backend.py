@@ -399,4 +399,49 @@ def verify_signature_sets_gpu(sets, device=None) -> bool:
     return bool(verify_signature_sets_gpu_async(sets, device))
 
 
+# --- Single verifications ----------------------------------------------------
+
+
+def single_m_bucket(k: int) -> int:
+    """The m bucket of a k-pair product: the smallest m >= k that staging
+    gives a batch (``_m_bucket_for``; every menu entry is a power of two),
+    so that a warm node replays stage graphs the warmer has captured."""
+    return _m_bucket_for(_next_pow2(k), k)
+
+
+def stage_pairs(pk_points, messages, sig_point, m_bucket: int):
+    """Host staging of prod_i e(pk_i, H(m_i)) * e(-g1, sig) for stage 1 and
+    stage 3 of bucket m: (u (2, 2, 12, m), p_proj (3, 12, m + 1) without its
+    last column, -g1, which the device adds, s_proj (3, 2, 12, 1),
+    row_mask (m,)), numpy. Padding rows are infinity and masked, and so is
+    a row whose key is infinity (the oracle skips such a pair)."""
+    k = len(messages)
+    u = np.zeros((2, 2, lb.L, m_bucket), dtype=np.int32)
+    u[..., :k] = h2c.hash_to_field_limbs_np(list(messages))
+    pts = list(pk_points) + [None] * (m_bucket - k)
+    row_mask = np.array([p is not None for p in pts], dtype=bool)
+    return u, cv.g1_from_affine_np(pts), cv.g2_from_affine_np([sig_point]), row_mask
+
+
+def verify_pairs_gpu(pk_points, messages, sig_point, device=None) -> bool:
+    """prod_i e(pk_i, H(m_i)) * e(-g1, sig) == 1 on `device` (default: the
+    card), deterministic, with no batch scalar: the single verifications'
+    product (``crypto/bls/api.py`` verify, aggregate_verify). Runs the batch
+    path's stage graphs of bucket ``single_m_bucket(k)``, stage 1 on the
+    messages' field elements and stage 3 on the keys, -g1 and the
+    signature, under the bucket's lock from stage 1 until the verdict is
+    read (stage 1's static outputs are stage 3's input)."""
+    device = lb.default_device(device)
+    m_bucket = single_m_bucket(len(messages))
+    u, p_proj, s_proj, row_mask = stage_pairs(pk_points, messages, sig_point, m_bucket)
+    u, p_proj, s_proj, row_mask = to_device((u, p_proj, s_proj, row_mask), device)
+    device = u.device
+    p_proj = torch.cat([p_proj, _neg_g1(device)], dim=-1)
+    valid = torch.ones((), dtype=torch.bool, device=device)
+    with _stage_lock(m_bucket, device):
+        h_unique = _stage1_graph(m_bucket, device)(u)
+        verdict = _stage3_graph(m_bucket, device)(p_proj, h_unique, s_proj, row_mask, valid)
+        return bool(verdict.item())
+
+
 _api.register_backend("gpu", verify_signature_sets_gpu)

@@ -39,6 +39,9 @@ allocated uninitialised (every call overwrites them), so no fill kernel
 races on another stream. One warm-up and capture runs at a time in the
 process (``_CAPTURE``), and each thread captures on a stream of its own in
 ``thread_local`` mode, so a thread may replay while another captures.
+Each capture is recorded as a ``graph_capture`` event
+(``observability/compile_events``) with its warm-up, capture and
+instantiation seconds.
 """
 
 import ctypes
@@ -48,6 +51,7 @@ import time
 
 import torch
 
+from ..observability import compile_events
 from . import fused
 
 _CAPTURE = threading.Lock()
@@ -240,3 +244,5 @@ class StaticGraph:
                           "rss_bytes": rss_bytes() - rss0,
                           "pool_bytes": torch.cuda.memory_reserved(self.device) - reserved0}
             self.graph, self.outputs = graph, outputs
+        compile_events.record("graph_capture", t3 - t0, graph=self.name,
+                              nodes=self.stats["nodes"])
