@@ -94,11 +94,47 @@ Phases, each printing one JSON line:
    single_shapes
             every kernel the single path launched against its plain
             version, bit for bit, at each operand shape it gave it.
+6c. wide    batches past 4096 sets: the headline's 64 sets tiled to
+            8192 and 16384 sets (WIDE_NS), each run with the prepare stage
+            monolithic and chunked at 4096 (LIGHTHOUSE_TPU_PREP_CHUNK 0 and
+            WIDE_CHUNK): on one staged batch with fixed scalars the chunked
+            p_proj, s_proj and sets_valid torch.equal to the monolithic
+            ones; stage_host's wall and its share in the Montgomery
+            conversion; then per mode a watched eager verify (operand
+            shapes), one more counting every kernel, the API's first call
+            (which captures the prepare graph: its kernels must be counted)
+            and a warm one (nothing launched from Python), the poisoned copy
+            False, the prepare graph's capture costs, the peak of
+            torch.cuda.max_memory_allocated, eager and replayed warm walls
+            (GRAPH_TIMED_CALLS each, in turns), the eager stage split and
+            the stage timers' device ms over 3 replayed verifies.
+   wide_shapes
+            every kernel against its plain version, bit for bit, at each
+            operand shape the wide verifies gave it that the headline did
+            not.
+6d. multi   the sharded verify (parallel/mesh.py): meshes over every
+            visible card and MULTI_SHARDS shards laid on the lead card (one
+            card: the degenerate case, which shows the split and the join
+            right and their cost, not scaling). For each: a watched eager
+            sharded verify (staging with the mesh's floors, then
+            backend.core_sharded) and one more counting every kernel; on
+            one batch with fixed scalars the lead's joined stage-2 outputs
+            affine-equal to the unsharded prepare's on the message rows and
+            h2g2's columns torch.equal; the API's first call (True, the
+            partial prepare's kernels counted) and a warm one (only the
+            join's 2 (d - 1) K5 additions launched from Python); the
+            headline, the poisoned copy and the 256 distinct sets with the
+            unsharded verdicts (True, False, True); the stage timers'
+            device ms over 3 replayed verifies (h2g2 and prepare summed
+            over the shards); eager and replayed warm walls.
+   multi_shapes
+            likewise at each operand shape the sharded verifies gave.
 7. warmer   the port's ShapeWarmer over WARMER_RUNGS with every m of each,
             one headline verify run while it warms (True); then one more
             key captured on the main thread, to compare; each graph the
             warmer captured and every graph of the run with its costs, and
-            the 67-graph warm grid's cost extrapolated per kind.
+            the default warm grid's cost extrapolated per kind (81 graphs:
+            53 prepare, 14 h2g2, 14 pairing).
 8. profile  torch.profiler over one call of each unit (fp_add, fp_sub,
             fp_neg and fp_mul_small on equal shapes, fp_add broadcast and
             strided, G1/G2 add and double: one CUDA kernel each, or the
@@ -121,8 +157,12 @@ Phases, each printing one JSON line:
             replays with different scalars give different p_proj and both
             verify; eager and graph warm verifies, GRAPH_TIMED_CALLS each in
             turns (median, spread); torch.profiler over one replayed
-            headline and by_root verify (nothing launched from Python, every
-            captured port kernel in the trace, busy ms, idle share).
+            headline, 16384-set wide (the default chunk width) and by_root
+            verify (nothing launched from Python, every captured port
+            kernel in the trace, busy ms, idle share). The wide phase
+            traces nothing: torch.profiler has dropped the port's kernels
+            from a short trace taken after long ones, and the profile
+            phase's short traces come first.
 
 10. serving the serving path in front of the card. pipelined: the headline
             batch, warm, PIPELINED_BATCHES times with every fifth the
@@ -693,6 +733,12 @@ def phase_wrapper():
     fused.reset_launches()
 
 
+def _new_shapes(shapes, seen):
+    """The operand shapes of `shapes` that `seen` (the headline's record)
+    does not hold, per kernel."""
+    return {name: v - seen.get(name, set()) for name, v in shapes.items()}
+
+
 def phase_main_path_shapes(shapes, phase="main_path_shapes", required=None):
     """Every kernel against its plain version at each operand shape a path
     gave it (stacked leading rows included; K4 and K5 at each operand
@@ -791,17 +837,18 @@ def _timed_verify(verify, *args, sync=None):
     return ok, time.perf_counter() - t0
 
 
-def _bls_stages(sets):
+def _bls_stages(sets, chunk=0):
     """The headline verify's stages as thunks on fixed inputs, each stage's
     inputs made once by the stages before it: staging on the host, then
-    h2g2, prepare and pairing (which returns the verdict)."""
+    h2g2, prepare (chunked at `chunk`) and pairing (which returns the
+    verdict)."""
     from lighthouse_tpu_torch.ops import backend
 
     device = torch.device(DEVICE)
     args, m_bucket, all_checked = backend.stage(sets, device)
     u, inv_idx, row_mask, pk, sig, sig_checked, set_mask, scalars = args
     h = backend._h2g2(u)
-    prep = (pk, sig, sig_checked, set_mask, scalars, inv_idx, m_bucket, all_checked)
+    prep = (pk, sig, sig_checked, set_mask, scalars, inv_idx, m_bucket, all_checked, chunk)
     p_proj, s_proj, valid = backend._prepare(*prep)
     return {"staging": lambda: backend.stage(sets, device),
             "h2g2": lambda: backend._h2g2(u),
@@ -1374,6 +1421,313 @@ def phase_single(kzg_state, distinct):
     return shapes
 
 
+# The wide phase: the headline's sets tiled past 4096, each bucket
+# monolithic and chunked (LIGHTHOUSE_TPU_PREP_CHUNK), and the multi phase:
+# the sharded verify over meshes on the card.
+WIDE_NS = (8192, 16384)
+WIDE_CHUNK = 4096
+WIDE_MODES = {"monolithic": 0, "chunked": WIDE_CHUNK}
+MULTI_SHARDS = (2, 4)       # shards laid on the lead card, beside every card's mesh
+
+
+def _tiled(base, n):
+    """`base` repeated to n sets, and a copy with set len(base) + 5 (69 for
+    the headline's 64) poisoned: set 5's message under set 6's keys."""
+    from lighthouse_tpu_torch.crypto.bls import api
+
+    sets = (base * (n // len(base) + 1))[:n]
+    poisoned = list(sets)
+    i = len(base) + 5
+    poisoned[i] = api.SignatureSet(sets[i].signature, sets[6].signing_keys, sets[i].message)
+    return sets, poisoned
+
+
+def _staging_split(sets, reps=3):
+    """stage_host's wall, `reps` times, and the share of it spent in
+    limbs.ints_to_limbs_np (the Montgomery conversion in Python integers),
+    with the coordinates it converted."""
+    from lighthouse_tpu_torch.ops import backend
+    from lighthouse_tpu_torch.ops import limbs as lb
+
+    orig = lb.ints_to_limbs_np
+    spent = {"s": 0.0, "coordinates": 0}
+
+    def timed(xs):
+        t0 = time.perf_counter()
+        out = orig(xs)
+        spent["s"] += time.perf_counter() - t0
+        spent["coordinates"] += out.shape[-1]
+        return out
+
+    walls, conv = [], []
+    lb.ints_to_limbs_np = timed
+    try:
+        for _ in range(reps):
+            spent.update(s=0.0, coordinates=0)
+            t0 = time.perf_counter()
+            backend.stage_host(sets)
+            walls.append(time.perf_counter() - t0)
+            conv.append(spent["s"])
+    finally:
+        lb.ints_to_limbs_np = orig
+    return {"stage_host_s": walls, "ints_to_limbs_np_s": conv,
+            "coordinates": spent["coordinates"]}
+
+
+def _chunk_equal(sets, n):
+    """On one staged batch with fixed scalars, the chunked prepare's
+    p_proj, s_proj and sets_valid torch.equal to the monolithic one's."""
+    from lighthouse_tpu_torch.ops import backend
+
+    from lighthouse_tpu_torch.ops import fused
+
+    args, m_bucket, checked = backend.stage(sets, torch.device(DEVICE),
+                                            scalars=backend.draw_scalars(n, n))
+    u, inv_idx, row_mask, pk, sig, sig_checked, set_mask, scalars = args
+    outs, used = {}, {}
+    for mode, chunk in WIDE_MODES.items():
+        fused.reset_launches()
+        outs[mode] = backend._prepare(pk, sig, sig_checked, set_mask, scalars, inv_idx,
+                                      m_bucket, checked, chunk)
+        _sync()
+        used[mode] = sorted(k for k, v in fused.launches.items() if v)
+    mono, chunked = outs["monolithic"], outs["chunked"]
+    return _same({name: (a, b) for name, a, b in zip(("p_proj", "s_proj", "sets_valid"),
+                                                       mono, chunked)},
+                 f"n = {n}: chunked against monolithic prepare"), used
+
+
+def _replayed_stage_ms(verify, what, calls=3):
+    """engine_stage_seconds{engine="gpu"} (CUDA events around each stage's
+    replays) over `calls` warm verifies -> ({stage: device ms a verify},
+    {stage: samples a verify}: one a shard for a sharded verify's h2g2
+    and prepare)."""
+    from lighthouse_tpu_torch.observability import stages
+
+    names = ("h2g2", "prepare", "pairing")
+    hist = stages.stage_seconds()
+    stages.force_timing(True)
+    try:
+        before = _stage_device_s(hist, names)
+        for _ in range(calls):
+            if verify() is not True:
+                raise AssertionError(f"{what} did not verify with stage timing on")
+        stages.settle(wait=True)
+        after = _stage_device_s(hist, names)
+    finally:
+        stages.force_timing(False)
+    return ({k: (after[k][1] - before[k][1]) / calls * 1e3 for k in names},
+            {k: (after[k][0] - before[k][0]) / calls for k in names})
+
+
+def phase_wide(base):
+    """Batches past 4096 sets (module docstring, phase 6c) -> (the operand
+    shapes the wide verifies gave each kernel, their launches per run)."""
+    from lighthouse_tpu_torch.crypto.bls import api
+    from lighthouse_tpu_torch.ops import backend, fused
+
+    if backend.max_n_bucket() < max(WIDE_NS):
+        raise AssertionError(f"max_n_bucket() is {backend.max_n_bucket()}")
+    dev = torch.device(DEVICE)
+    shapes = {name: set() for name in fused.launches}
+    launches, runs = {}, {}
+    default = os.environ.get("LIGHTHOUSE_TPU_PREP_CHUNK")
+    try:
+        for n in WIDE_NS:
+            sets, poisoned = _tiled(base, n)
+            equal, prepare_kernels = _chunk_equal(sets, n)
+            runs[n] = {"chunked_equals_monolithic": equal, "staging": _staging_split(sets)}
+            for mode, width in WIDE_MODES.items():
+                os.environ["LIGHTHOUSE_TPU_PREP_CHUNK"] = str(width)   # the chunk width
+                what = f"wide {n} x {HEADLINE['keys']} {mode}"
+                (ok, eager_first_s), rec, _, _ = _watched(
+                    lambda: _timed_verify(_eager_verify, sets))
+                for k, v in rec.items():
+                    shapes[k] |= v
+                eager = _eager_launches(lambda: _eager_verify(sets), what)
+                torch.cuda.reset_peak_memory_stats()
+                # Stage 1 and 3 may replay graphs captured before (m = 64
+                # at n = 16384: the headline's): the first call captures
+                # the prepare graph, whose kernels must all be counted.
+                first, first_s, warm_s = _main_path_runs(api.verify_signature_sets, (sets,),
+                                                         what, prepare_kernels[mode])
+                launches[f"{n} {mode}"] = {"first_api_call": first, "eager_verify": eager}
+                core = backend.graph_core(n, HEADLINE["keys"],
+                                          backend._m_bucket_for(n, len(base)), True, dev)
+                if not core.prepare.name.endswith(f"chunk={width}"):
+                    raise AssertionError(f"{what} reached {core.prepare.name}")
+                bad, bad_s = _timed_verify(api.verify_signature_sets, poisoned)
+                if bad is not False:
+                    raise AssertionError(f"{what}: the poisoned copy verified")
+                runs[n][mode] = {
+                    "verified": ok, "poisoned": bad, "poisoned_wall_s": bad_s,
+                    "first_use_s": first_s, "warm_wall_s": warm_s,
+                    "eager_first_run_s": eager_first_s,
+                    "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+                    "graphs": {g.name: _stats(g) for g in core.graphs},
+                    "walls": _walls(lambda: _eager_verify(sets),
+                                    lambda: api.verify_signature_sets(sets), what),
+                    "stages_s": _stage_seconds(_bls_stages(sets, width), what),
+                    "replayed_stage_device_ms": _replayed_stage_ms(
+                        lambda: api.verify_signature_sets(sets), what)[0]}
+                runs[n][mode]["sigs_per_s_replayed"] = \
+                    n / runs[n][mode]["walls"]["graph"]["median_s"]
+    finally:
+        if default is None:
+            os.environ.pop("LIGHTHOUSE_TPU_PREP_CHUNK", None)
+        else:
+            os.environ["LIGHTHOUSE_TPU_PREP_CHUNK"] = default
+    fused.reset_launches()
+    emit({"phase": "wide", "gpu": nvidia_smi("name,power.limit"), "keys_per_set": HEADLINE["keys"],
+          "distinct_messages": HEADLINE["distinct"], "chunk": WIDE_CHUNK,
+          "default_chunk": backend.DEFAULT_PREP_CHUNK, "max_n_bucket": backend.max_n_bucket(),
+          "runs": {str(n): v for n, v in runs.items()}, "launches": launches})
+    return shapes, launches
+
+
+def _eager_launches(verify, what):
+    """One eager verify with the launch counts reset just before and read
+    just after: it must verify and launch every kernel."""
+    from lighthouse_tpu_torch.ops import fused
+
+    fused.reset_launches()
+    ok = verify()
+    launched = dict(fused.launches)
+    # (A rehearsal on the CPU runs the plain versions: nothing is counted.)
+    missing = [k for k, v in launched.items() if v <= 0 and DEVICE == "cuda"]
+    if ok is not True or missing:
+        raise AssertionError(f"{what} on the eager path: verdict {ok}, launched no {missing}")
+    return launched
+
+
+def _eager_sharded(sets, mesh):
+    """A sharded verify on the eager path: staging with the mesh's floors,
+    then backend.core_sharded."""
+    from lighthouse_tpu_torch.ops import backend
+
+    d = len(mesh)
+    host, m_bucket, checked = backend.stage_host(sets, n_floor=d, m_floor=d)
+    return bool(backend.core_sharded(*backend.shard_staged(host, mesh), m_bucket,
+                                     checked).item())
+
+
+def _sharded_stage2(sets, mesh):
+    """On one batch with fixed scalars, the lead's stage-2 outputs of the
+    sharded path (each shard's partial prepare, joined) against the
+    unsharded prepare's, as affine points on the batch's message rows and
+    the -g1 row; the joined h2g2 columns torch.equal to the unsharded
+    ones; and the validity bits equal."""
+    from lighthouse_tpu_torch.ops import backend, fused
+    from lighthouse_tpu_torch.ops import curves as cv
+
+    d, lead = len(mesh), mesh[0]
+    n_bucket = backend._next_pow2(len(sets), floor=d)
+    host, m_bucket, checked = backend.stage_host(sets, backend.draw_scalars(len(sets), n_bucket),
+                                                 n_floor=d, m_floor=d)
+    u, inv_idx, row_mask, pk, sig, sig_checked, set_mask, scalars = backend.to_device(host, lead)
+    h = backend._h2g2(u)
+    p_proj, s_proj, valid = backend._prepare(pk, sig, sig_checked, set_mask, scalars, inv_idx,
+                                             m_bucket, checked)
+    shards, _ = backend.shard_staged(host, mesh)
+    parts = []
+    for su, sinv, spk, ssig, schk, smask, ssc in shards:
+        a, s, ok = backend._partial_prepare(spk, ssig, schk, smask, ssc, sinv, m_bucket, checked)
+        parts.append(tuple(backend._to_lead(x, lead) for x in (backend._h2g2(su), a, s, ok)))
+    fused.reset_launches()
+    backend._partial_prepare(*shards[0][2:], shards[0][1], m_bucket, checked)
+    _sync()
+    used = sorted(k for k, v in fused.launches.items() if v)
+    g_p, g_h, g_s, g_valid = backend._join_shards(parts)
+    rows = row_mask.nonzero().flatten().tolist() + [m_bucket]
+    same = {"p_proj": cv.to_affine_ints(p_proj[..., rows], "G1")
+            == cv.to_affine_ints(g_p[..., rows], "G1"),
+            "s_proj": cv.to_affine_ints(s_proj, "G2") == cv.to_affine_ints(g_s, "G2"),
+            "sets_valid": bool(valid) == bool(g_valid), "h_unique": torch.equal(h, g_h)}
+    if not all(same.values()):
+        raise AssertionError(f"{d} shards: the lead's stage-2 outputs differ: {same}")
+    return {"rows": len(rows), "affine_equal": sorted(same),
+            "projective_equal_p_proj": torch.equal(p_proj[..., rows], g_p[..., rows])}, used
+
+
+def phase_multi(sets, poisoned, distinct):
+    """The sharded verify (module docstring, phase 6d) -> (the operand
+    shapes its eager runs gave each kernel, its launches per mesh)."""
+    from lighthouse_tpu_torch.crypto.bls import api
+    from lighthouse_tpu_torch.ops import backend, fused
+    from lighthouse_tpu_torch.parallel import mesh as pm
+
+    every = pm.get_mesh()
+    meshes = {f"every_card_{len(every)}": every,
+              **{f"{d}_shards_on_{every[0]}": pm.get_mesh(devices=[every[0]] * d)
+                 for d in MULTI_SHARDS}}
+    batches = {"headline": (sets, True), "poisoned": (poisoned, False),
+               "distinct_256": (distinct, True)}
+    unsharded = {name: api.verify_signature_sets(b, sharded=False)
+                 for name, (b, _) in batches.items()}
+    if unsharded != {name: want for name, (_, want) in batches.items()}:
+        raise AssertionError(f"unsharded verdicts {unsharded}")
+    shapes = {name: set() for name in fused.launches}
+    launches, out = {}, {}
+    for label, mesh in meshes.items():
+        d = len(mesh)
+        what = f"sharded headline over {label}"
+        _, rec, _, _ = _watched(lambda: _eager_sharded(sets, mesh))
+        for k, v in rec.items():
+            shapes[k] |= v
+        eager = _eager_launches(lambda: _eager_sharded(sets, mesh), what)
+        stage2, partial_kernels = _sharded_stage2(sets, mesh)
+        host, m_bucket, checked = backend.stage_host(sets, n_floor=d, m_floor=d)
+        core = backend.sharded_core(host[3].shape[-1], host[3].shape[0], m_bucket, checked, mesh)
+        fresh = [g.name for g in core.graphs if g.stats is None]
+        # The first call captures the graphs no mesh before captured (a
+        # shard's partial prepare is keyed by its device and width, so two
+        # meshes may share one): the kernels of a fresh partial prepare
+        # must all be counted.
+        fused.reset_launches()
+        first_ok, first_s = _timed_verify(lambda: api.verify_signature_sets(sets, mesh=mesh))
+        first = dict(fused.launches)
+        if any(name.startswith("partial_prepare") for name in fresh):
+            missing = [k for k in partial_kernels if first[k] <= 0]
+        else:
+            missing = []
+        uncaptured = [g.name for g in core.graphs if g.stats is None and DEVICE == "cuda"]
+        if first_ok is not True or missing or uncaptured:
+            raise AssertionError(f"{what}: verdict {first_ok}, launched no {missing}, "
+                                 f"left {uncaptured} uncaptured")
+        launches[label] = {"first_api_call": first, "eager_verify": eager}
+        fused.reset_launches()
+        warm_ok, warm_s = _timed_verify(lambda: api.verify_signature_sets(sets, mesh=mesh))
+        warm = {k: v for k, v in fused.launches.items() if v}
+        join = {"g1_add": d - 1, "g2_add": d - 1} if d > 1 and DEVICE == "cuda" else {}
+        if warm_ok is not True or warm != join:
+            raise AssertionError(f"{what} warm: verdict {warm_ok}, launched {warm} from Python, "
+                                 f"the join's {join}")
+        verdicts = {name: api.verify_signature_sets(b, mesh=mesh) for name, (b, _) in
+                    batches.items()}
+        if verdicts != unsharded:
+            raise AssertionError(f"{what}: verdicts {verdicts}, unsharded {unsharded}")
+        stage_ms, samples = _replayed_stage_ms(
+            lambda: api.verify_signature_sets(sets, mesh=mesh), what)
+        out[label] = {"devices": [str(x) for x in mesh], "shards": d,
+                      "distinct_cards": len(set(mesh)), "verdicts": verdicts,
+                      "equal_to_unsharded": True, "first_use_s": first_s,
+                      "graphs_captured_at_first_use": fresh,
+                      "warm_wall_s": warm_s, "warm_launches_from_python": warm,
+                      "stage2": stage2,
+                      "replayed_stage_device_ms": {"ms": stage_ms,
+                                                   "samples_per_verify": samples},
+                      "walls": _walls(lambda: _eager_sharded(sets, mesh),
+                                      lambda: api.verify_signature_sets(sets, mesh=mesh), what)}
+    fused.reset_launches()
+    emit({"phase": "multi", "gpu": nvidia_smi("name,power.limit"),
+          "device_count": torch.cuda.device_count(),
+          "degenerate": "one card: every mesh lays its shards on the one device, so this "
+                        "shows the split and the join are right and what they cost, not "
+                        "scaling" if torch.cuda.device_count() == 1 else None,
+          "unsharded_verdicts": unsharded, "meshes": out})
+    return shapes, launches
+
+
 # The port's own kernels in a trace (csrc/*.cu, each in an anonymous
 # namespace): matched against the wrapper's launch counts.
 PORT_KERNEL = re.compile(r"^void \(anonymous namespace\)::(fp(_add|_mul|2|12)|curve)_kernel")
@@ -1500,9 +1854,19 @@ def phase_profile(headline, kzg_by_root):
 # The graphs phase: warm verifies timed per path, the warmer's rungs, and the
 # warm grid's graphs (tests/test_torch_graphs.py counts them).
 GRAPH_TIMED_CALLS = 5
-WARMER_RUNGS = ((64, 1), (64, 4), (4096, 4))
+WARMER_RUNGS = ((64, 1), (64, 4), (4096, 4), (16384, 4))
 MAIN_THREAD_RUNG = (2048, 1)    # a rung no other phase reaches
-GRID_GRAPHS = {"prepare": 43, "h2g2": 12, "pairing": 12}
+
+
+def _grid_kinds(grid):
+    """The stage graphs a warm of `grid` captures, by kind: a prepare graph
+    per (n, k, m) and a stage-1 and a stage-3 graph per m, m over each
+    rung's menu."""
+    from lighthouse_tpu_torch.beacon_processor.warming import m_menu
+
+    prepare = {(n, k, m) for n, k in grid for m in m_menu(n)}
+    ms = {m for _, _, m in prepare}
+    return {"prepare": len(prepare), "h2g2": len(ms), "pairing": len(ms)}
 
 
 def _all_graphs():
@@ -1511,8 +1875,8 @@ def _all_graphs():
     from lighthouse_tpu_torch.ops import backend
     from lighthouse_tpu_torch.ops import kzg as okzg
 
-    builders = (backend._stage1_graph, backend._prepare_graph, backend._stage3_graph,
-                okzg._graphed)
+    builders = (backend._stage1_graph, backend._prepare_graph, backend._partial_prepare_graph,
+                backend._stage3_graph, okzg._graphed)
     return {g.name: g for b in builders for g in b.cache.values()}
 
 
@@ -1647,8 +2011,16 @@ def phase_graphs(sets, kzg_state):
     for name, batch in batches.items():
         walls[name] = _walls(lambda: _kzg_eager(kzg, *batch),
                              lambda: kzg.verify_blob_kzg_proof_batch(*batch), f"KZG {name}")
+    # The widest bucket at the default chunk width (the wide phase captured
+    # it): traced here, after the profile phase's short traces.
+    n = max(WIDE_NS)
+    wide, _ = _tiled(sets[:HEADLINE["distinct"]], n)
+    m = backend._m_bucket_for(n, HEADLINE["distinct"])
+    wide_core = backend.graph_core(n, HEADLINE["keys"], m, True, core.h2g2.device)
     traces = {"headline": _replay_trace(lambda: api.verify_signature_sets(sets), core.graphs,
                                         "headline"),
+              f"wide_{n}": _replay_trace(lambda: api.verify_signature_sets(wide), wide_core.graphs,
+                                         f"wide {n}"),
               "by_root": _replay_trace(lambda: kzg.verify_blob_kzg_proof_batch(*batches["by_root"]),
                                        [kzg_graphs["by_root"]], "by_root")}
     emit({"phase": "graphs", "keys": keys, "bit_equal": bit_equal, "walls": walls,
@@ -1692,8 +2064,11 @@ def phase_warmer(sets):
     with core.lock:
         core(*synthetic_batch(n, k, m, DEVICE)).item()
     every = [_stats(g) for g in _all_graphs().values()]
+    from lighthouse_tpu_torch.beacon_processor.warming import DEFAULT_SHAPE_GRID
+
+    grid_kinds = _grid_kinds(DEFAULT_SHAPE_GRID)
     per_kind = {}
-    for kind, grid_count in GRID_GRAPHS.items():
+    for kind, grid_count in grid_kinds.items():
         rows = [r for r in every if r["name"].split()[0] == kind]
         cost = {f: statistics.mean(r[f] for r in rows)
                 for f in ("warmup_s", "capture_s", "instantiate_s", "nodes", "rss_bytes",
@@ -1709,7 +2084,7 @@ def phase_warmer(sets):
           "rss_delta_bytes": rss_bytes() - rss0,
           "reserved_delta_bytes": torch.cuda.memory_reserved() - reserved0,
           "every_graph": every, "per_kind": per_kind,
-          "grid_extrapolation": {"graphs": sum(GRID_GRAPHS.values()), **grid,
+          "grid_extrapolation": {"graphs": sum(grid_kinds.values()), **grid,
                                  "seconds": grid["warmup_s"] + grid["capture_s"]
                                  + grid["instantiate_s"]},
           "process_rss_bytes": rss_bytes(),
@@ -2011,15 +2386,8 @@ def _point_tuple(pt):
 
 
 def _grid_graphs(grid):
-    """The stage graphs a warm of `grid` captures: a prepare graph per (n, k,
-    m) and a stage-1 and a stage-3 graph per m, m over each rung's menu."""
-    from lighthouse_tpu_torch.beacon_processor.warming import m_menu
-
-    keys = set()
-    for n, k in grid:
-        for m in m_menu(n):
-            keys |= {("prepare", n, k, m), ("h2g2", m), ("pairing", m)}
-    return len(keys)
+    """The number of stage graphs a warm of `grid` captures."""
+    return sum(_grid_kinds(grid).values())
 
 
 def _restart(mode, bundle_dir):
@@ -2161,11 +2529,13 @@ def restart_main(mode, bundle_dir, launched_unix) -> int:
 
 
 def _summary(kernels, by_shape, launches, shape_errs, launches_kzg, per_verify=None,
-             per_verify_kzg=None):
+             per_verify_kzg=None, launches_paths=None):
     """The kernels line. `launches` counts the main path's first headline
     verify through the API (which runs each stage eagerly, then captures
     it), `launches_per_verify` one eager verify, which is what a replay
-    runs; likewise `launches_kzg` and `launches_kzg_per_verify`."""
+    runs; likewise `launches_kzg` and `launches_kzg_per_verify`, and
+    `launches_wide` and `launches_multi` per run of those phases (the
+    first API call and one eager verify)."""
     from lighthouse_tpu_torch.ops import fused
 
     summary = []
@@ -2183,7 +2553,10 @@ def _summary(kernels, by_shape, launches, shape_errs, launches_kzg, per_verify=N
                         "launches_kzg": {b: v[name] for b, v in launches_kzg.items()},
                         "launches_per_verify": (per_verify or {}).get(name),
                         "launches_kzg_per_verify": {b: v[name] for b, v in
-                                                    (per_verify_kzg or {}).items()}})
+                                                    (per_verify_kzg or {}).items()},
+                        **{f"launches_{path}": {run: {k: v[name] for k, v in counts.items()}
+                                                for run, counts in runs.items()}
+                           for path, runs in (launches_paths or {}).items()}})
         if name in by_shape:
             summary[-1].update(
                 floor_ms_by_n={n: v["floor_ms"] for n, v in per_n.items()},
@@ -2222,7 +2595,12 @@ def main(argv) -> int:
     single_shapes = phase_single(kzg_state, distinct)
     single_errs = phase_main_path_shapes(
         single_shapes, "single_shapes", [k for k, v in single_shapes.items() if v])
-    errs = {k: max(shape_errs[k], kzg_errs.get(k, 0), single_errs.get(k, 0)) for k in shape_errs}
+    wide_shapes, launches_wide = phase_wide(sets[:HEADLINE["distinct"]])
+    wide_errs = phase_main_path_shapes(_new_shapes(wide_shapes, shapes), "wide_shapes", [])
+    multi_shapes, launches_multi = phase_multi(sets, poisoned, distinct)
+    multi_errs = phase_main_path_shapes(_new_shapes(multi_shapes, shapes), "multi_shapes", [])
+    errs = {k: max(shape_errs[k], kzg_errs.get(k, 0), single_errs.get(k, 0),
+                   wide_errs.get(k, 0), multi_errs.get(k, 0)) for k in shape_errs}
     phase_warmer(sets)
     phase_profile(headline, kzg_by_root)
     phase_graphs(sets, kzg_state)
@@ -2230,7 +2608,7 @@ def main(argv) -> int:
                           _stage_seconds(headline[1](), "headline batch"))
     phase_control(stack, sets)
     summary = _summary(kernels, kernel_by_shape, launches, errs, launches_kzg, per_verify,
-                       per_verify_kzg)
+                       per_verify_kzg, {"wide": launches_wide, "multi": launches_multi})
     emit({"phase": "done", "seconds": time.perf_counter() - t0})
     print(nvidia_smi("name,power.limit"), flush=True)
     emit({"kernels": summary})

@@ -8,6 +8,7 @@ pairing layers in ``ops/`` and the hand-written CUDA kernels of
 ``ops/csrc``. In front of it runs the serving path: the batch former
 (``beacon_processor``), the continuous-batch scheduler and the cost-model
 router (``serving``), which sends small batches to the native CPU verifier
-(backend ``"cpu"``). The package imports torch and never jax, and nothing
-of lighthouse_tpu.
+(backend ``"cpu"``). A batch of up to 16384 sets may also be verified over
+a mesh of devices (``parallel``). The package imports torch and never jax,
+and nothing of lighthouse_tpu.
 """

@@ -12,9 +12,15 @@ all_checked=False is captured on its first use. A verify in another thread
 may run meanwhile: it replays warm keys, and a key being captured is
 captured once (its lock), the other caller waiting for it.
 
-The grid stops at (4096, 4), the port's ``max_n_bucket``: the port has no
-chunked prep stage, and no verify above 4096 sets has run on the card,
-where the JAX warmer also warms 8192 and 16384 (its ``max_n_bucket``).
+The grid is JAX's, up to (16384, 4); ``_run`` skips a rung above
+``ops/backend.max_n_bucket`` (JAX ``:270-276``). A rung's prepare graphs
+are keyed by its chunk width (``ops/backend.prep_chunk_width``).
+
+``ShapeWarmer(sharded=True)`` warms the sharded keys of a mesh
+(``parallel/mesh.py``, every visible card by default) as JAX's
+``_warm_one_bm`` does (``:207-257``): each shard's stage 1 and partial
+prepare on its device and stage 3 on the lead, over the m menu floored at
+the next power of two >= the mesh size.
 
 As each rung's graphs are captured, the warmer tells the batch policy
 (``beacon_processor/processor.AdaptiveBatchPolicy``) that its bucket has
@@ -40,10 +46,11 @@ import torch
 from ..observability import compile_events, trace
 from ..ops import backend
 from ..ops import limbs as lb
+from ..parallel import mesh as pm
 
 DEFAULT_SHAPE_GRID: Tuple[Tuple[int, int], ...] = (
     (64, 1), (64, 4), (256, 1), (256, 4), (1024, 1), (1024, 4),
-    (2048, 1), (2048, 4), (4096, 4),
+    (2048, 1), (2048, 4), (4096, 4), (8192, 4), (16384, 4),
 )
 
 
@@ -73,28 +80,35 @@ def tuned_shape_grid(policy: Optional[dict],
     return tuple(out)
 
 
-def m_menu(n_bucket: int) -> list:
+def m_menu(n_bucket: int, m_low: int = 1) -> list:
     """Every m bucket that staging can give a batch of n_bucket sets
-    (M_BUCKET_SHIFTS through _m_bucket_for, as _warm_one_bm walks it)."""
-    return sorted({backend._m_bucket_for(n_bucket, max(1, n_bucket >> shift))
+    (M_BUCKET_SHIFTS through _m_bucket_for, as _warm_one_bm walks it),
+    floored at `m_low` (a mesh: the next power of two >= its size)."""
+    return sorted({max(backend._m_bucket_for(n_bucket, max(1, n_bucket >> shift)), m_low)
                    for shift in backend.M_BUCKET_SHIFTS})
 
 
-def synthetic_batch(n_bucket: int, k_bucket: int, m_bucket: int, device) -> tuple:
-    """Staged arguments of an all-padding batch at one key: zero field
-    elements, infinity keys and signatures, every set masked out with its
-    signature checked, scalars 1. Made on the host and copied over, so the
-    warmer's thread makes no cached device constant on its own stream."""
+def synthetic_host(n_bucket: int, k_bucket: int, m_bucket: int) -> tuple:
+    """The staged numpy arrays of an all-padding batch at one key: zero
+    field elements, infinity keys and signatures, every set masked out
+    with its signature checked, scalars 1."""
     n, L = n_bucket, lb.L
     one = lb.ints_to_limbs_np([1])                      # Montgomery 1, (12, 1)
     g1 = np.zeros((k_bucket, 3, L, n), dtype=np.int32)
     g1[:, 1] = one
     g2 = np.zeros((3, 2, L, n), dtype=np.int32)
     g2[1, 0] = one
-    host = (np.zeros((2, 2, L, m_bucket), dtype=np.int32), np.arange(n, dtype=np.int64) % m_bucket,
+    return (np.zeros((2, 2, L, m_bucket), dtype=np.int32), np.arange(n, dtype=np.int64) % m_bucket,
             np.zeros((m_bucket,), dtype=bool), g1, g2, np.ones((n,), dtype=bool),
             np.zeros((n,), dtype=bool), np.ones((n,), dtype=np.int64))
-    return tuple(torch.from_numpy(x).to(device) for x in host)
+
+
+def synthetic_batch(n_bucket: int, k_bucket: int, m_bucket: int, device) -> tuple:
+    """``synthetic_host`` on `device`. Made on the host and copied over, so
+    the warmer's thread makes no cached device constant on its own
+    stream."""
+    return tuple(torch.from_numpy(x).to(device)
+                 for x in synthetic_host(n_bucket, k_bucket, m_bucket))
 
 
 class ShapeWarmer:
@@ -105,10 +119,11 @@ class ShapeWarmer:
     raised: it is left for first use, as in JAX."""
 
     def __init__(self, policy=None, shapes: Sequence[Tuple[int, int]] = DEFAULT_SHAPE_GRID,
-                 device=None):
+                 device=None, sharded: bool = False, mesh=None):
         self.policy = policy
         self.shapes = tuple(shapes)
-        self.device = lb.default_device(device)
+        self.mesh = pm.get_mesh(devices=mesh) if sharded else None
+        self.device = self.mesh[0] if sharded else lb.default_device(device)
         self.warmed: list = []
         self.captured: list = []
         self.failed: list = []
@@ -133,9 +148,13 @@ class ShapeWarmer:
             self._thread.join(timeout)
 
     def warm_one(self, n_bucket: int, k_bucket: int) -> None:
-        """Run every m bucket of one rung through its graphs, all_checked."""
+        """Run every m bucket of one rung through its graphs, all_checked
+        (over the mesh when sharded)."""
         with trace.span("warm_one", cat="warming", n=n_bucket, k=k_bucket):
             compile_events.record("warm_capture_path", n=n_bucket, k=k_bucket)
+            if self.mesh is not None:
+                self._warm_sharded(n_bucket, k_bucket)
+                return
             for m_bucket in m_menu(n_bucket):
                 core = backend.graph_core(n_bucket, k_bucket, m_bucket, True, self.device)
                 args = synthetic_batch(n_bucket, k_bucket, m_bucket, self.device)
@@ -144,13 +163,28 @@ class ShapeWarmer:
                     core(*args).item()      # lets go of the lock once the device is done
                 self.captured.extend((g.name, g.stats) for g in fresh if g.stats is not None)
 
+    def _warm_sharded(self, n_bucket: int, k_bucket: int) -> None:
+        d = len(self.mesh)
+        n_bucket = backend._next_pow2(n_bucket, floor=d)
+        for m_bucket in m_menu(n_bucket, backend._next_pow2(d)):
+            core = backend.sharded_core(n_bucket, k_bucket, m_bucket, True, self.mesh)
+            fresh = [g for g in core.graphs if g.stats is None]
+            host = synthetic_host(n_bucket, k_bucket, m_bucket)
+            bool(core(*backend.shard_staged(host, self.mesh)))
+            self.captured.extend((g.name, g.stats) for g in fresh if g.stats is not None)
+
     def _run(self) -> None:
-        on_card = self.device.type == "cuda"
-        stream = torch.cuda.Stream(self.device) if on_card else None
-        with torch.cuda.stream(stream) if on_card else contextlib.nullcontext():
+        devices = dict.fromkeys(d for d in (self.mesh or (self.device,)) if d.type == "cuda")
+        with contextlib.ExitStack() as streams:
+            # A stream of its own on each card, the lead's entered last.
+            for dev in sorted(devices, key=lambda d: d == self.device):
+                streams.enter_context(torch.cuda.stream(torch.cuda.Stream(dev)))
+            n_cap = backend.max_n_bucket()
             for n_bucket, k_bucket in self.shapes:
                 if self._stop.is_set():
                     return
+                if n_bucket > n_cap:
+                    continue        # above the cap: never staged, never warmed
                 try:
                     self.warm_one(n_bucket, k_bucket)
                 except Exception:  # the rung is left for first use, and recorded

@@ -255,7 +255,8 @@ _active_backend = "gpu"
 
 
 def register_backend(name: str, fn) -> None:
-    """fn(sets, device=None) -> bool."""
+    """fn(sets, device=None, **options) -> bool; the options are the
+    backend's own (the "gpu" backend's `sharded` and `mesh`)."""
     _BACKENDS[name] = fn
 
 
@@ -282,15 +283,16 @@ def get_backend() -> str:
 
 
 def verify_signature_sets(sets: Sequence[SignatureSet], backend: Optional[str] = None,
-                          device=None) -> bool:
+                          device=None, **options) -> bool:
     """Batch-verify signature sets on `backend` (default: the active one,
-    "gpu", on the card unless device says otherwise). On False, callers
-    isolate the poisoned sets (find_invalid_sets)."""
-    return bool(_resolve(backend or _active_backend)(list(sets), device=device))
+    "gpu", on the card unless device says otherwise), passing it
+    `options` (the "gpu" backend's `sharded=` and `mesh=`). On False,
+    callers isolate the poisoned sets (find_invalid_sets)."""
+    return bool(_resolve(backend or _active_backend)(list(sets), device=device, **options))
 
 
 def find_invalid_sets(sets: Sequence[SignatureSet], backend: Optional[str] = None,
-                      device=None) -> list:
+                      device=None, **options) -> list:
     """Indices of the invalid sets, by bisection: a failing range splits in
     two and each failing half recurses (~2 log2(n) k batch calls for k
     culprits)."""
@@ -298,7 +300,7 @@ def find_invalid_sets(sets: Sequence[SignatureSet], backend: Optional[str] = Non
     out: list = []
 
     def recurse(lo: int, hi: int) -> None:
-        if verify_signature_sets(sets[lo:hi], backend=backend, device=device):
+        if verify_signature_sets(sets[lo:hi], backend=backend, device=device, **options):
             return
         if hi - lo == 1:
             out.append(lo)

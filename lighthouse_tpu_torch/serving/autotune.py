@@ -43,7 +43,7 @@ tracer, time-series, SLO engine and policy manifest, with the same
 decisions on the same evidence. It reads the live ``M_BUCKET_SHIFTS`` and
 ``max_n_bucket()`` from ``lighthouse_tpu_torch.ops.backend`` when that
 module is loaded (and never imports it), and caps the bucket menu at
-``max_n_bucket()``, 4096: the largest bucket the port serves.
+``max_n_bucket()``, 16384: the largest bucket the port serves.
 """
 
 from __future__ import annotations
@@ -69,7 +69,7 @@ POLICY_VERSION = 1
 # read from ops.backend when it is loaded (importing it pulls the device
 # stack, which the control plane must not require just to construct).
 _DEFAULT_M_SHIFTS = (8, 6, 4, 2, 0)
-_DEFAULT_MAX_N_BUCKET = 4096
+_DEFAULT_MAX_N_BUCKET = 16384
 _BACKEND = "lighthouse_tpu_torch.ops.backend"
 
 

@@ -26,7 +26,10 @@ The port's router (counterpart: ``lighthouse_tpu/serving/router.py``
 (backend ``gpu``) as its device route. It does not retry a failed device
 batch on the CPU (JAX :196-216): a device-route exception propagates, so
 that a kernel that fails to launch is seen, not hidden by the other route
-(and ``serving_router_fallback_total`` is not registered).
+(and ``serving_router_fallback_total`` is not registered). Its
+``sharded`` and ``mesh`` go to the device route's backend
+(``ops/backend.resolve_mesh``), so that a scheduler over this router
+verifies its batches over a mesh.
 """
 
 from __future__ import annotations
@@ -111,10 +114,15 @@ class CostModelRouter:
     def __init__(self, table: Optional[LatencyTable] = None,
                  cpu_backend: str = "cpu", device_backend: str = "gpu",
                  small_batch_max: int = 16, margin_s: float = 0.02,
-                 registry: Optional[m.Registry] = None):
+                 registry: Optional[m.Registry] = None,
+                 sharded: Optional[bool] = None, mesh=None):
         self.table = table or LatencyTable()
         self.cpu_backend = cpu_backend
         self.device_backend = device_backend
+        # Passed to the device route's backend ("gpu": ops/backend.py
+        # resolve_mesh); None and None leave it the backend's defaults.
+        self.device_options = {k: v for k, v in (("sharded", sharded), ("mesh", mesh))
+                               if v is not None}
         self.small_batch_max = small_batch_max
         self.margin_s = margin_s
         reg = registry or m.REGISTRY
@@ -165,6 +173,9 @@ class CostModelRouter:
     def backend_name(self, route: str) -> str:
         return self.cpu_backend if route == "cpu" else self.device_backend
 
+    def _options(self, route: str) -> dict:
+        return self.device_options if route == "device" else {}
+
     def route(self, n_sets: int,
               deadline_budget: Optional[float] = None) -> Tuple[str, str]:
         """(route, reason) for a batch of `n_sets`."""
@@ -197,7 +208,7 @@ class CostModelRouter:
         with trace.span("router:verify", cat="lifecycle",
                         route=route, n_sets=len(sets)):
             ok = bool(api.verify_signature_sets(
-                sets, backend=self.backend_name(route)))
+                sets, backend=self.backend_name(route), **self._options(route)))
         dt = time.perf_counter() - t0
         self.table.observe(route, bucket, dt)
         self._latency[route].observe(dt)
@@ -207,5 +218,5 @@ class CostModelRouter:
         """Poisoned-batch isolation on the same route that failed (keeps
         the bisection halves on already-captured buckets for the device
         route; the native route has no shape cost either way)."""
-        return api.find_invalid_sets(sets,
-                                     backend=self.backend_name(route))
+        return api.find_invalid_sets(sets, backend=self.backend_name(route),
+                                     **self._options(route))

@@ -190,7 +190,7 @@ def _stack(mods, monkeypatch, fake):
     monkeypatch.setitem(api._BACKENDS, "fake_device", backend_fn(2e-5, 0.03))
     reg = m.Registry()
     clock = mods["clock"].ManualSlotClock(genesis_time=0, seconds_per_slot=12)
-    policy = (mods["proc"].AdaptiveBatchPolicy(max_bucket=4096) if mods is JAX
+    policy = (mods["proc"].AdaptiveBatchPolicy(max_bucket=16384) if mods is JAX
               else mods["proc"].AdaptiveBatchPolicy())
     router = mods["router"].CostModelRouter(cpu_backend="fake_cpu",
                                             device_backend="fake_device", registry=reg)
@@ -237,7 +237,7 @@ def test_autotuner_decisions_match_jax(seed, monkeypatch):
     assert port_run == jax_run
     knobs = {d["knob"] for step in port_run[0] for d in step}
     assert {"close_margin", "router_cutoff", "bucket_menu", "warm_grid"} <= knobs
-    assert pauto._m_bucket_shifts() == (8, 6, 4, 2, 0) and pauto._max_n_bucket() == 4096
+    assert pauto._m_bucket_shifts() == (8, 6, 4, 2, 0) and pauto._max_n_bucket() == 16384
 
 
 def _apply(mods, monkeypatch, policy, env=None, check_env=True):

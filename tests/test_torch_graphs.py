@@ -31,15 +31,15 @@ def _jax_menu(n_bucket):
 
 
 def test_warm_grid_and_menu_match_jax():
-    jax_grid = tuple(r for r in jwarming.DEFAULT_SHAPE_GRID if r[0] <= 4096)
+    jax_grid = jwarming.DEFAULT_SHAPE_GRID
     assert warming.DEFAULT_SHAPE_GRID == jax_grid
-    assert max(n for n, _ in jwarming.DEFAULT_SHAPE_GRID) == 16384   # left to chunked prep
+    assert max(n for n, _ in jax_grid) == 16384 == backend.max_n_bucket()
     for n, _ in jax_grid:
         assert warming.m_menu(n) == _jax_menu(n)
     prepare = [(n, k, m) for n, k in jax_grid for m in warming.m_menu(n)]
     stages = {m for _, _, m in prepare}
-    assert (len(prepare), len(stages)) == (43, 12)
-    assert stages == {1, 4, 8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096}
+    assert (len(prepare), len(stages)) == (53, 14)
+    assert stages == {1, 4, 8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096, 8192, 16384}
 
 
 def _stub(x, mask):

@@ -165,8 +165,8 @@ def _policy_ops(policy, seed):
 @pytest.mark.parametrize("seed", range(4))
 def test_batch_policy_matches_jax(seed):
     port = pproc.AdaptiveBatchPolicy()
-    assert port.max_bucket == backend.max_n_bucket() == 4096
-    assert _policy_ops(port, seed) == _policy_ops(jproc.AdaptiveBatchPolicy(max_bucket=4096), seed)
+    assert port.max_bucket == backend.max_n_bucket() == 16384
+    assert _policy_ops(port, seed) == _policy_ops(jproc.AdaptiveBatchPolicy(max_bucket=16384), seed)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -231,7 +231,7 @@ def _scheduler_run(mods, seed, monkeypatch):
     monkeypatch.setitem(api._BACKENDS, "fake_device", backend_fn(2e-5, 0.06))
     reg = m.Registry()
     clock = clock_mod.ManualSlotClock(genesis_time=0, seconds_per_slot=12)
-    policy = proc.AdaptiveBatchPolicy(max_bucket=4096) if mods is JAX else proc.AdaptiveBatchPolicy()
+    policy = proc.AdaptiveBatchPolicy(max_bucket=16384) if mods is JAX else proc.AdaptiveBatchPolicy()
     router = router_mod.CostModelRouter(cpu_backend="fake_cpu", device_backend="fake_device",
                                         registry=reg)
     sched = sched_mod.ContinuousBatchScheduler(clock, policy, router, registry=reg)
