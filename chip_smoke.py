@@ -260,13 +260,15 @@ K1_SHAPES = ((12, 1), (3, 2, 12, 65), (4, 12, 4096), (6, 12, 4096),
 K4_SHAPES = ((2, 12, 64), (2, 12, 65), (12, 4096), (2, 12, 4096), (6, 12, 4096))
 # K5's operand shapes on the paths, per entry: G1 in the headline's ladder
 # and key tree (n = 4096) and KZG's ladders (16 and 512 lanes); G2 in h2g2's
-# cofactor clearing (m = 64), the pairing's addition steps (m + 1 = 65) and
-# the signature ladder (4096).
+# cofactor clearing (m = 64), the pairing's addition steps (m + 1 = 65), the
+# signature ladder (4096) and the wide path's ladder (16384, max_n_bucket).
+# They span both of K5's layouts (pairs of lanes up to 1024 points, one lane
+# a unit from 1025).
 K5 = ("g1_add", "g1_double", "g2_add", "g2_double")
 K5_SHAPES = {"g1_add": ((3, 12, 16), (3, 12, 512), (3, 12, 4096), (2, 3, 12, 4096)),
              "g1_double": ((3, 12, 16), (3, 12, 512), (3, 12, 4096)),
-             "g2_add": ((3, 2, 12, 64), (3, 2, 12, 65), (3, 2, 12, 4096)),
-             "g2_double": ((3, 2, 12, 64), (3, 2, 12, 4096))}
+             "g2_add": ((3, 2, 12, 64), (3, 2, 12, 65), (3, 2, 12, 4096), (3, 2, 12, 16384)),
+             "g2_double": ((3, 2, 12, 64), (3, 2, 12, 4096), (3, 2, 12, 16384))}
 # Libraries timed at main-path shapes beside an empty kernel on their grid:
 # library -> (empty entry point, shapes (or shapes per entry), phase tag).
 FLOORED = {"fp_mul": ("lh_fp_empty", K1_SHAPES, "k1"),
@@ -726,7 +728,7 @@ def phase_wrapper():
         "whole_call_strided": lambda: fused.g1_add(g1[..., :-1], g1[..., 1:]),
         "whole_call_broadcast": lambda: fused.g1_add(g1[..., :-1], col),
     }
-    # 500 calls: K5 runs 7-18 us a call on the card, and 5000 back to back
+    # 500 calls: K5 runs 7-17 us a call on the card, and 5000 back to back
     # would fill the launch queue and time the card instead of the host.
     emit({"phase": "wrapper", "kernel": "g2_add", "shape": [3, 2, 12, 64],
           "host_us": {k: _host_us(f, 500) for k, f in k5_parts.items()}})

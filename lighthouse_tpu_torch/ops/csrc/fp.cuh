@@ -165,6 +165,159 @@ __device__ __forceinline__ void redc_imm(uint32_t* t, uint32_t* out) {
   for (int j = 0; j < NL; ++j) out[j] = br < 0 ? t[NL + j] : d[j];
 }
 
+// --- Carry chains (PTX: one multiply-add a limb, the carry in the flag), K5's
+// products and REDC (csrc/curve_op.cu). A lone warp's Fp product, twelve rows
+// of these and twelve REDC steps, takes about 2,300 cycles on an H100 against
+// about 2,850 for mul_wide + redc_imm (scripts/probe_k5.py micro).
+//
+// row_even: t[0..11] += x (y0, y2, ..., y10) as (lo, hi) pairs, the carry
+//   into t[12] and t[13]; row_odd: t[0..11] += x (y1, y3, ..., y11), t[0]
+//   y1's column, the carry into t[12]. Two rows add x y at column 0.
+// redc_even / redc_odd: the same with p's limbs as immediates; redc_even
+//   adds ec and the chain's carry into t[12] and returns that limb's carry,
+//   redc_odd returns its chain's carry.
+// The C versions below compute the same for a host compiler (the source
+// can then be run on a CPU against the plain versions).
+#if defined(__CUDA_ARCH__)
+__device__ __forceinline__ void row_even(uint32_t* t, uint32_t x, const uint32_t* y) {
+  asm("mad.lo.cc.u32 %0, %14, %15, %0;"
+      "madc.hi.cc.u32 %1, %14, %15, %1;"
+      "madc.lo.cc.u32 %2, %14, %16, %2;"
+      "madc.hi.cc.u32 %3, %14, %16, %3;"
+      "madc.lo.cc.u32 %4, %14, %17, %4;"
+      "madc.hi.cc.u32 %5, %14, %17, %5;"
+      "madc.lo.cc.u32 %6, %14, %18, %6;"
+      "madc.hi.cc.u32 %7, %14, %18, %7;"
+      "madc.lo.cc.u32 %8, %14, %19, %8;"
+      "madc.hi.cc.u32 %9, %14, %19, %9;"
+      "madc.lo.cc.u32 %10, %14, %20, %10;"
+      "madc.hi.cc.u32 %11, %14, %20, %11;"
+      "addc.cc.u32 %12, %12, 0;"
+      "addc.u32 %13, %13, 0;"
+      : "+r"(t[0]), "+r"(t[1]), "+r"(t[2]), "+r"(t[3]), "+r"(t[4]), "+r"(t[5]), "+r"(t[6]), "+r"(t[7]), "+r"(t[8]), "+r"(t[9]), "+r"(t[10]), "+r"(t[11]), "+r"(t[12]), "+r"(t[13])
+      : "r"(x), "r"(y[0]), "r"(y[2]), "r"(y[4]), "r"(y[6]), "r"(y[8]), "r"(y[10]));
+}
+
+__device__ __forceinline__ void row_odd(uint32_t* t, uint32_t x, const uint32_t* y) {
+  asm("mad.lo.cc.u32 %0, %13, %14, %0;"
+      "madc.hi.cc.u32 %1, %13, %14, %1;"
+      "madc.lo.cc.u32 %2, %13, %15, %2;"
+      "madc.hi.cc.u32 %3, %13, %15, %3;"
+      "madc.lo.cc.u32 %4, %13, %16, %4;"
+      "madc.hi.cc.u32 %5, %13, %16, %5;"
+      "madc.lo.cc.u32 %6, %13, %17, %6;"
+      "madc.hi.cc.u32 %7, %13, %17, %7;"
+      "madc.lo.cc.u32 %8, %13, %18, %8;"
+      "madc.hi.cc.u32 %9, %13, %18, %9;"
+      "madc.lo.cc.u32 %10, %13, %19, %10;"
+      "madc.hi.cc.u32 %11, %13, %19, %11;"
+      "addc.u32 %12, %12, 0;"
+      : "+r"(t[0]), "+r"(t[1]), "+r"(t[2]), "+r"(t[3]), "+r"(t[4]), "+r"(t[5]), "+r"(t[6]), "+r"(t[7]), "+r"(t[8]), "+r"(t[9]), "+r"(t[10]), "+r"(t[11]), "+r"(t[12])
+      : "r"(x), "r"(y[1]), "r"(y[3]), "r"(y[5]), "r"(y[7]), "r"(y[9]), "r"(y[11]));
+}
+
+__device__ __forceinline__ uint32_t redc_even(uint32_t* t, uint32_t m, uint32_t ec) {
+  uint32_t k;
+  asm("mad.lo.cc.u32 %0, %14, 0xffffaaabU, %0;"
+      "madc.hi.cc.u32 %1, %14, 0xffffaaabU, %1;"
+      "madc.lo.cc.u32 %2, %14, 0xb153ffffU, %2;"
+      "madc.hi.cc.u32 %3, %14, 0xb153ffffU, %3;"
+      "madc.lo.cc.u32 %4, %14, 0xf6b0f624U, %4;"
+      "madc.hi.cc.u32 %5, %14, 0xf6b0f624U, %5;"
+      "madc.lo.cc.u32 %6, %14, 0xf38512bfU, %6;"
+      "madc.hi.cc.u32 %7, %14, 0xf38512bfU, %7;"
+      "madc.lo.cc.u32 %8, %14, 0x434bacd7U, %8;"
+      "madc.hi.cc.u32 %9, %14, 0x434bacd7U, %9;"
+      "madc.lo.cc.u32 %10, %14, 0x397fe69aU, %10;"
+      "madc.hi.cc.u32 %11, %14, 0x397fe69aU, %11;"
+      "addc.cc.u32 %12, %12, %15;"
+      "addc.u32 %13, 0, 0;"
+      : "+r"(t[0]), "+r"(t[1]), "+r"(t[2]), "+r"(t[3]), "+r"(t[4]), "+r"(t[5]), "+r"(t[6]), "+r"(t[7]), "+r"(t[8]), "+r"(t[9]), "+r"(t[10]), "+r"(t[11]), "+r"(t[12]), "=r"(k)
+      : "r"(m), "r"(ec));
+  return k;
+}
+
+__device__ __forceinline__ uint32_t redc_odd(uint32_t* t, uint32_t m) {
+  uint32_t k;
+  asm("mad.lo.cc.u32 %0, %13, 0xb9feffffU, %0;"
+      "madc.hi.cc.u32 %1, %13, 0xb9feffffU, %1;"
+      "madc.lo.cc.u32 %2, %13, 0x1eabfffeU, %2;"
+      "madc.hi.cc.u32 %3, %13, 0x1eabfffeU, %3;"
+      "madc.lo.cc.u32 %4, %13, 0x6730d2a0U, %4;"
+      "madc.hi.cc.u32 %5, %13, 0x6730d2a0U, %5;"
+      "madc.lo.cc.u32 %6, %13, 0x64774b84U, %6;"
+      "madc.hi.cc.u32 %7, %13, 0x64774b84U, %7;"
+      "madc.lo.cc.u32 %8, %13, 0x4b1ba7b6U, %8;"
+      "madc.hi.cc.u32 %9, %13, 0x4b1ba7b6U, %9;"
+      "madc.lo.cc.u32 %10, %13, 0x1a0111eaU, %10;"
+      "madc.hi.cc.u32 %11, %13, 0x1a0111eaU, %11;"
+      "addc.u32 %12, 0, 0;"
+      : "+r"(t[0]), "+r"(t[1]), "+r"(t[2]), "+r"(t[3]), "+r"(t[4]), "+r"(t[5]), "+r"(t[6]), "+r"(t[7]), "+r"(t[8]), "+r"(t[9]), "+r"(t[10]), "+r"(t[11]), "=r"(k)
+      : "r"(m));
+  return k;
+}
+#else
+__device__ __forceinline__ void row_even(uint32_t* t, uint32_t x, const uint32_t* y) {
+  uint64_t c = 0;
+  for (int k = 0; k < 6; ++k) {
+    const uint64_t p = (uint64_t)x * y[2 * k];
+    c += (uint64_t)t[2 * k] + (uint32_t)p;
+    t[2 * k] = (uint32_t)c;
+    c = (c >> 32) + t[2 * k + 1] + (p >> 32);
+    t[2 * k + 1] = (uint32_t)c;
+    c >>= 32;
+  }
+  c += t[12];
+  t[12] = (uint32_t)c;
+  t[13] += (uint32_t)(c >> 32);
+}
+
+__device__ __forceinline__ void row_odd(uint32_t* t, uint32_t x, const uint32_t* y) {
+  uint64_t c = 0;
+  for (int k = 0; k < 6; ++k) {
+    const uint64_t p = (uint64_t)x * y[2 * k + 1];
+    c += (uint64_t)t[2 * k] + (uint32_t)p;
+    t[2 * k] = (uint32_t)c;
+    c = (c >> 32) + t[2 * k + 1] + (p >> 32);
+    t[2 * k + 1] = (uint32_t)c;
+    c >>= 32;
+  }
+  t[12] += (uint32_t)c;
+}
+
+__device__ __forceinline__ uint32_t redc_even(uint32_t* t, uint32_t m, uint32_t ec) {
+  uint32_t y[12];
+  for (int j = 0; j < 12; ++j) y[j] = p_limb(j);
+  uint64_t c = 0;
+  for (int k = 0; k < 6; ++k) {
+    const uint64_t p = (uint64_t)m * y[2 * k];
+    c += (uint64_t)t[2 * k] + (uint32_t)p;
+    t[2 * k] = (uint32_t)c;
+    c = (c >> 32) + t[2 * k + 1] + (p >> 32);
+    t[2 * k + 1] = (uint32_t)c;
+    c >>= 32;
+  }
+  c += (uint64_t)t[12] + ec;
+  t[12] = (uint32_t)c;
+  return (uint32_t)(c >> 32);
+}
+
+__device__ __forceinline__ uint32_t redc_odd(uint32_t* t, uint32_t m) {
+  uint32_t y[12];
+  for (int j = 0; j < 12; ++j) y[j] = p_limb(j);
+  uint64_t c = 0;
+  for (int k = 0; k < 6; ++k) {
+    const uint64_t p = (uint64_t)m * y[2 * k + 1];
+    c += (uint64_t)t[2 * k] + (uint32_t)p;
+    t[2 * k] = (uint32_t)c;
+    c = (c >> 32) + t[2 * k + 1] + (p >> 32);
+    t[2 * k + 1] = (uint32_t)c;
+    c >>= 32;
+  }
+  return (uint32_t)c;
+}
+#endif
+
 // out = a + b mod p for canonical a, b; out may alias a or b.
 __device__ __forceinline__ void add_mod(const uint32_t* a, const uint32_t* b, uint32_t* out) {
   uint32_t s[NL], d[NL];

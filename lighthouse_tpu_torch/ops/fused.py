@@ -524,8 +524,9 @@ def fp_mul_small_plain(a, k: int):
 #
 # K5 (csrc/curve_op.cu) runs one complete Renes-Costello-Batina addition or
 # doubling (a = 0) per point in two levels, each a step of independent Fp
-# products and then a step of reductions, one warp of the block per product
-# and per reduced Fp value. Its schedule is written here once per operation,
+# products and then a step of reductions, one unit of the block (a lane, or
+# a pair of lanes, of a warp) per product and per reduced Fp value. Its
+# schedule is written here once per operation,
 # from the formulas of curves._Group (``_add_plain`` / ``_double_plain``), and
 # handed to the kernel as the generated header curve_plan.h:
 #
@@ -536,7 +537,7 @@ def fp_mul_small_plain(a, k: int):
 #             quotient estimate: K5_INV_HI), so W < p^2;
 #   reduce    an Fp value REDC(T), T = o p^2 + sum_i d_i W_i, o the sum of
 #             the subtracted |d_i|: 0 <= T <= (sum_i |d_i|) p^2 <= 9 p^2 <
-#             p 2^384 (2^384 / p > 9.8), so REDC is canonical (lh::redc_imm).
+#             p 2^384 (2^384 / p > 9.8), so REDC is canonical.
 # An Fp2 product is Karatsuba's three Fp products (a square two:
 # (a0 + a1)(a0 - a1) and 2 a0 a1), and a reduction folds the Fp2
 # reduction and the formula's sums of products into one REDC. Level 0's

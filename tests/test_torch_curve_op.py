@@ -3,14 +3,22 @@ CPU, where it cannot run:
 
 - the schedule's words (ops/fused.py k5_plan_words, which the generated
   header curve_plan.h holds) replayed in Python integers in the kernel's
-  order: each operand's combination (a chain of modular adds for +-1
-  coefficients, else column sums, a carry pass, the double-precision
-  quotient estimate and one conditional subtraction), each product, each
-  reduction's signed column sums plus o p^2, its carry pass and REDC, with
-  every bound the kernel relies on asserted; the results against the
-  pure-Python oracle on multiples of the generators, infinity, P + P,
-  P + (-P), O + O and Z != 1;
-- the header's counts and constants against the schedule and p;
+  order, for both of its layouts: one lane a unit (each operand's
+  combination, a chain of modular adds for +-1 coefficients, else column
+  sums, a carry pass, the double-precision quotient estimate and one
+  conditional subtraction; the product's twelve rows of two carry chains;
+  each reduction's signed column sums plus o p^2, its carry pass and the
+  REDC's twelve steps of two chains with the deferred carry ec) and a pair
+  of lanes a unit (an operand each, level 1's all in the one-pass form; six
+  rows each and sub-lane 0's sum of the partials; half the column sums
+  each with the signed limb's bias; both lanes' quotient words with the
+  products below column 12 and the carries into it; each lane's rows of
+  the products above; the partials' sum and one subtraction), with every
+  bound the kernel relies on asserted; the results against the pure-Python
+  oracle on multiples of the generators, infinity, P + P, P + (-P), O + O
+  and Z != 1, and on values off the curve;
+- the header's counts and constants against the schedule and p, and the
+  source's layouts (shared memory per block within the card's 227 KB);
 - _Group.add / double on CPU tensors (the plain versions) with broadcast
   infinity, minor-axis slices, leading-axis halves and permuted strides
   against the contiguous call, and the kernel's addressing of such operands
@@ -18,7 +26,9 @@ CPU, where it cannot run:
 - the wrappers' checks.
 """
 
+import functools
 import re
+import struct
 from pathlib import Path
 
 import pytest
@@ -37,16 +47,31 @@ R = 1 << 384
 R_INV = pow(R, -1, P)
 M32 = (1 << 32) - 1
 HAS = fused.K5_HAS
+N0 = (-pow(P, -1, 1 << 32)) % (1 << 32)
+P_LIMBS = [(P >> (32 * i)) & ((1 << 32) - 1) for i in range(12)]
+P2_LIMBS = [(P * P >> (32 * i)) & ((1 << 32) - 1) for i in range(24)]
+MASK384 = (1 << 384) - 1
+P_EVEN = sum(P_LIMBS[2 * k] << (64 * k) for k in range(6))      # redc_even's pairs
+P_ODD = sum(P_LIMBS[2 * k + 1] << (64 * k) for k in range(6))   # redc_odd's
 
 
 def _limb(x: int, i: int) -> int:
     return (x >> (32 * i)) & M32
 
 
+def _limbs(x: int, n: int) -> list:
+    """x mod 2^(32 n) as n limbs."""
+    return list(struct.unpack(f"<{n}I", (x & ((1 << (32 * n)) - 1)).to_bytes(4 * n, "little")))
+
+
+def _value(t) -> int:
+    return int.from_bytes(struct.pack(f"<{len(t)}I", *t), "little")
+
+
 # --- The kernel's arithmetic, replayed --------------------------------------
 
 
-def _combine(words, slots):
+def _combine(words, slots, chains=True):
     """csrc/curve_op.cu combine on one lane: -> a canonical value."""
     terms = []
     for w in words:
@@ -57,23 +82,27 @@ def _combine(words, slots):
     assert terms, "an operand has a term"
     for s, _, _ in terms:
         assert 0 <= slots[s] < P
-    if all(k == 1 for _, k, _ in terms):                 # K4's chains
+    if chains and all(k == 1 for _, k, _ in terms):      # K4's chains
         s, _, neg = terms[0]
         acc = (P - slots[s]) % P if neg else slots[s]
         for s, _, neg in terms[1:]:
             acc = (acc - slots[s]) % P if neg else (acc + slots[s]) % P
         return acc
     col = [0] * 12
-    m = 0
+    signed = [0] * 12                                      # the signed-limb form
+    m = bias = 0
     for s, k, neg in terms:
         c = -k if neg else k
         m += k if neg else 0
-        for i in range(12):
-            col[i] += c * _limb(slots[s], i)
-            assert abs(col[i]) < 1 << 62
+        bias += c << 31
+        for i, x in enumerate(_limbs(slots[s], 12)):
+            col[i] += c * x
+            signed[i] += c * (x - (1 << 31))
+            assert abs(col[i]) < 1 << 62 and abs(signed[i]) < 1 << 62
+    assert all(x + bias == y for x, y in zip(signed, col))
     carry, v = 0, []
     for i in range(12):
-        carry += col[i] + m * _limb(P, i)
+        carry += col[i] + m * P_LIMBS[i]
         v.append(carry & M32)
         carry >>= 32                                       # arithmetic, as the kernel's
     assert 0 <= carry < 1 << 15
@@ -88,55 +117,177 @@ def _combine(words, slots):
     return r - P if r >= P else r
 
 
-def _reduce(rec, wide):
-    """csrc/curve_op.cu reduce on one lane: -> (the canonical value, T)."""
+def _rows(a, y, y_even, upto=None):
+    """csrc/curve_op.cu rows: len(a) rows of a times y = b, two chains a row
+    (row_even's pairs b_2k at even limbs, y_even, then row_odd's) -> len(a)
+    + 13 limbs, exact (and, with `upto`, also the first `upto` rows' limbs).
+    The chains write t[i .. i + 14); after row_even the sum stays below
+    2^(32 (i + 12) + 1) and after row_odd below 2^(32 (i + 13)), so
+    row_even's carry out of t[i + 12] and row_odd's into t[i + 13] never
+    overflow that limb."""
+    n = len(a)
+    acc = first = 0
+    for i in range(n):
+        acc += (a[i] * y_even) << (32 * i)                # row_even
+        assert acc < 1 << (32 * (i + 12) + 1)
+        acc += (a[i] * (y - y_even)) << (32 * i)          # row_odd
+        assert acc < 1 << (32 * (i + 13))
+        if i + 1 == upto:
+            first = acc
+    assert acc == _value(a) * y
+    if upto is None:
+        return _limbs(acc, n + 13)
+    return _limbs(acc, n + 13), _limbs(first, upto + 13)
+
+
+def _products(rec, slots, level):
+    """csrc/curve_op.cu product in both layouts -> the 24-limb product. One
+    lane: both operands (K4's chains for +-1 coefficients), twelve rows. A
+    pair: an operand each (level 1's in the one-pass form), six rows each,
+    sub-lane 0 adds sub-lane 1's partial at limb 6."""
+    lin = fused.K5_LIN
+    x = _combine(rec[:lin], slots)
+    y = _combine(rec[lin:], slots)
+    for words, v in ((rec[:lin], x), (rec[lin:], y)):
+        if level and all((w >> 8) & 0xFFFF == 1 for w in words if w & HAS):
+            assert _combine(words, slots, False) == v     # the pair's one-pass form
+    a = _limbs(x, 12)
+    y_even = sum(((y >> (64 * k)) & M32) << (64 * k) for k in range(6))
+    lane, low = _rows(a, y, y_even, upto=6)                # a pair's sub-lane 0: rows 0-5
+    lane, high = lane[:24], _rows(a[6:], y, y_even)
+    pair, c = [], 0
+    for col in range(24):
+        c += (low[col] if col < 19 else 0) + (high[col - 6] if col >= 6 else 0)
+        pair.append(c & M32)
+        c >>= 32
+    assert c == 0 and pair == lane and _value(lane) == x * y < P * P
+    return lane
+
+
+def _column_sums(rec, wide, cols):
+    """The signed column sums of o p^2 + sum_i d_i W_i over `cols`, in the
+    signed-limb form with its bias (the same values as the branchy form)."""
     head = rec[0]
     off, terms = head & 0xFF, (head >> 16) & 0xFF
     assert terms <= fused.K5_RED
-    s = [off * _limb(P * P, c) for c in range(24)]
-    expect = off * P * P
+    s = {c: off * P2_LIMBS[c] for c in cols}
+    bias, expect = 0, off * P * P
     for w in rec[1:1 + terms]:
         assert w & HAS
         k, neg, idx = (w >> 8) & 0xFF, bool((w >> 16) & 1), w & 0xFF
-        assert 0 <= wide[idx] < P * P
-        for c in range(24):
-            s[c] += (-k if neg else k) * _limb(wide[idx], c)
-        expect += (-k if neg else k) * wide[idx]
-    assert all(abs(x) < 1 << 38 for x in s)
-    carry, t = 0, 0
+        d = -k if neg else k
+        assert 0 <= _value(wide[idx]) < P * P
+        bias += d << 31
+        for c in cols:
+            s[c] += d * (wide[idx][c] - (1 << 31))
+            assert abs(s[c]) < 1 << 62                    # the signed form, in 64 bits
+        expect += d * _value(wide[idx])
+    out = {c: v + bias for c, v in s.items()}
+    assert all(abs(v) < 1 << 38 for v in out.values())
+    return out, expect
+
+
+def _carry(sums, expect):
+    carry, t = 0, []
     for c in range(24):
-        carry += s[c]
-        t |= (carry & M32) << (32 * c)
-        carry >>= 32
-    assert carry == 0 and t == expect
-    assert 0 <= t < fused.K5_REDC_BOUND                  # T < p 2^384
-    m = (-t * pow(P, -1, R)) % R                          # REDC's quotient, row by row
-    u = (t + m * P) >> 384
-    assert (t + m * P) % R == 0 and u < 2 * P
-    return (u - P if u >= P else u), t
+        carry += sums[c]
+        t.append(carry & M32)
+        carry >>= 32                                      # arithmetic
+    assert carry == 0 and _value(t) == expect
+    assert 0 <= expect < fused.K5_REDC_BOUND              # T < p 2^384
+    return t
 
 
+def _redc_lane(t):
+    """redc_lane: twelve steps of redc_even (the pairs m p_2k at limbs i + 2k,
+    then t[i + 12] += ec and the chain's carry, k1 that limb's carry out) and
+    redc_odd (m p_2k+1 at limbs i + 1 + 2k, k2 its carry out), ec = k1 + k2
+    deferred to the next step's t[i + 12]."""
+    x = _value(t)
+    ec = 0
+    for i in range(12):
+        m = (x >> (32 * i)) * N0 & M32
+        window = (x >> (32 * i) & MASK384) + m * P_EVEN
+        x = x & ~(MASK384 << (32 * i)) | (window & MASK384) << (32 * i)
+        top = (x >> (32 * (i + 12)) & M32) + ec + (window >> 384)
+        x = x & ~(M32 << (32 * (i + 12))) | (top & M32) << (32 * (i + 12))
+        window = (x >> (32 * (i + 1)) & MASK384) + m * P_ODD
+        x = x & ~(MASK384 << (32 * (i + 1))) | (window & MASK384) << (32 * (i + 1))
+        ec = (top >> 32) + (window >> 384)
+        assert ec <= 2 and x >> (32 * i) & M32 == 0
+    assert ec == 0 and x & (R - 1) == 0
+    u = x >> 384
+    assert u < 2 * P
+    return u
+
+
+def _redc_pair(t):
+    """The pair's REDC: both lanes' quotient words with the products below
+    column 12 (step i: a chain over limbs i .. 11, its carry out summed in
+    ch), each lane's rows of the products above (sub-lane r: m_(2k + r)
+    times p's top 2k + r limbs into its 12-limb partial, a chain from limb 0
+    whose carry lands on the partial's next limb), the partials' sum."""
+    x = _value(t)
+    lo = x & (R - 1)
+    m, ch = [], 0
+    for i in range(12):
+        m.append((lo >> (32 * i)) * N0 & M32)
+        width = 32 * (12 - i)
+        window = (lo >> (32 * i)) + m[i] * (P & ((1 << width) - 1))
+        ch += window >> width
+        lo = lo & ((1 << (32 * i)) - 1) | (window & ((1 << width) - 1)) << (32 * i)
+        assert lo >> (32 * i) & M32 == 0
+    assert lo == 0 and ch < 1 << 36
+    parts = []
+    for r in range(2):
+        h = 0
+        for k in range(6):
+            i = 2 * k + r
+            h += m[i] * (P >> (32 * (12 - i)))                # p's top i limbs, from limb 0
+            assert h < 1 << (32 * (2 * k + 2))
+        parts.append(h)
+    u = (x >> 384) + ch + parts[0] + parts[1]
+    M = sum(v << (32 * i) for i, v in enumerate(m))
+    assert (x + M * P) % R == 0 and u == (x + M * P) >> 384 and u < 2 * P
+    return u
+
+
+def _reduce(rec, wide):
+    """csrc/curve_op.cu reduce in both layouts -> the canonical value. One
+    lane: all 24 column sums, the carry pass, redc_lane. A pair: 12 column
+    sums each, the carry pass, the split REDC."""
+    sums, expect = _column_sums(rec, wide, range(24))     # a pair: 12 each, the same sums
+    t = _carry(sums, expect)
+    u = _redc_lane(t)
+    assert _redc_pair(t) == u and u % P == expect * R_INV % P
+    return u - P if u >= P else u
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(op):
+    return fused.k5_plan_words(op), fused.k5_schedule(op)[1]
+
+
+@functools.lru_cache(maxsize=None)
 def _replay(op, inputs):
-    """The kernel on one lane: the input Fp values (Montgomery forms, the
-    load's order) -> the output Fp values (Montgomery forms)."""
-    words = fused.k5_plan_words(op)
-    _, levels = fused.k5_schedule(op)
+    """The kernel on one point, in both layouts (each step's two paths must
+    agree): the input Fp values (Montgomery forms, the load's order) -> the
+    output Fp values (Montgomery forms)."""
+    words, levels = _plan(op)
     slots = list(inputs)
     out = {}
     pos = 0
+    lin = fused.K5_LIN
     for level, (products, reds) in enumerate(levels):
         wide = []
         for k in range(len(products)):
-            rec = words[pos + 2 * fused.K5_LIN * k:pos + 2 * fused.K5_LIN * (k + 1)]
-            x = _combine(rec[:fused.K5_LIN], slots)
-            y = _combine(rec[fused.K5_LIN:], slots)
-            wide.append(x * y)
-        pos += 2 * fused.K5_LIN * len(products)
+            rec = words[pos + 2 * lin * k:pos + 2 * lin * (k + 1)]
+            wide.append(_products(rec, slots, level))
+        pos += 2 * lin * len(products)
         new = {}
         for k in range(len(reds)):
             rec = words[pos + (1 + fused.K5_RED) * k:pos + (1 + fused.K5_RED) * (k + 1)]
-            value, _ = _reduce(rec, wide)
-            (out if level else new)[(rec[0] >> 8) & 0xFF] = value
+            (out if level else new)[(rec[0] >> 8) & 0xFF] = _reduce(rec, wide)
         pos += (1 + fused.K5_RED) * len(reds)
         slots = [new[i] if i in new else slots[i] for i in range(max(len(slots), len(new)))]
     assert pos == len(words)
@@ -203,11 +354,12 @@ def test_replay_matches_oracle(case):
     pts, proj = (G1S, _g1_proj) if comps == 1 else (G2S, _g2_proj)
     add, mul = (oc.g1_add, oc.g1_mul) if comps == 1 else (oc.g2_add, oc.g2_mul)
     p, q = proj(pts[a], za), proj(pts[b], zb)
-    got = _replay(f"{group}_add", _fp_values(p, comps) + _fp_values(q, comps))
-    assert _to_affine(got, comps) == add(pts[a], pts[b])
-    got = _replay(f"{group}_double", _fp_values(p, comps))
-    want = None if pts[a] is None else mul(pts[a], 2)
-    assert _to_affine(got, comps) == want
+    want_add = add(pts[a], pts[b])
+    want_dbl = None if pts[a] is None else mul(pts[a], 2)
+    got = _replay(f"{group}_add", tuple(_fp_values(p, comps) + _fp_values(q, comps)))
+    assert _to_affine(got, comps) == want_add
+    got = _replay(f"{group}_double", tuple(_fp_values(p, comps)))    # one replay a (point, Z)
+    assert _to_affine(got, comps) == want_dbl
 
 
 def test_replay_on_values_off_the_curve():
@@ -215,13 +367,16 @@ def test_replay_on_values_off_the_curve():
     replay equals the plain version (which needs no curve point)."""
     for op, comps in (("g1_add", 1), ("g1_double", 1), ("g2_add", 2), ("g2_double", 2)):
         n_in = (2 if op.endswith("add") else 1) * 3 * comps
-        for fill in ((P - 1,) * n_in, tuple((P - 1) * (i % 2) for i in range(n_in))):
-            got = _replay(op, list(fill))
-            t = torch.stack([lb.ints_to_limbs([v * R_INV % P], "cpu") for v in fill])
-            t = t.reshape((2 if op.endswith("add") else 1, 3) + ((2,) if comps == 2 else ()) + (12, 1))
-            ref = fused.PLAIN[op](*t.unbind(0))
-            want = [lb.limbs_to_ints(ref.reshape(-1, 12, 1)[i]) for i in range(3 * comps)]
-            assert [v * R_INV % P for v in got] == [w[0] for w in want]
+        fills = ((P - 1,) * n_in, tuple((P - 1) * (i % 2) for i in range(n_in)))
+        # both fills as the two columns of one plain call
+        t = torch.stack([lb.ints_to_limbs([f[i] * R_INV % P for f in fills], "cpu")
+                         for i in range(n_in)])
+        t = t.reshape((2 if op.endswith("add") else 1, 3) + ((2,) if comps == 2 else ()) + (12, 2))
+        ref = fused.PLAIN[op](*t.unbind(0)).reshape(-1, 12, 2)
+        want = [lb.limbs_to_ints(ref[i]) for i in range(3 * comps)]
+        for col, fill in enumerate(fills):
+            got = _replay(op, fill)
+            assert [v * R_INV % P for v in got] == [w[col] for w in want]
 
 
 # --- The header ---------------------------------------------------------------
@@ -240,7 +395,7 @@ def test_header_counts_and_words():
             "comps": comps, "inputs": inputs, "np0": len(p0), "nr0": len(r0), "np1": len(p1),
             "nr1": len(r1), "slots": max(inputs, len(r0)), "wide": max(len(p0), len(p1)),
             "warps": max(len(p0), len(r0), len(p1), len(r1)), "words": len(words)}
-        assert int(counts["inputs"]) <= int(counts["warps"])    # one input Fp per warp
+        assert int(counts["inputs"]) <= int(counts["warps"])    # one input Fp per unit
         body = block[block.index(f"kK5Plan{name}["):]
         got = [int(h, 16) for h in re.findall(r"0x([0-9a-f]{8})u", body[:body.index("};")])]
         assert got == words
@@ -268,13 +423,49 @@ def test_quotient_constant():
 
 
 def test_source_constants():
-    """p^2's immediates in curve_op.cu, and K5's entry points."""
+    """p^2's immediates in curve_op.cu, p's even and odd limbs in the REDC
+    chains' PTX (fp.cuh redc_even, redc_odd), and K5's entry points."""
     src = (CSRC / "curve_op.cu").read_text()
     body = src[src.index("constexpr uint32_t p2_limb"):]
     imms = [int(h, 16) for h in re.findall(r"0x([0-9a-f]{8})u", body[:body.index("};")])]
     assert imms == [_limb(P * P, i) for i in range(24)]
+    header = (CSRC / "fp.cuh").read_text()
+    for name, first in (("redc_even", 0), ("redc_odd", 1)):
+        body = header[header.index(f"uint32_t {name}(uint32_t* t, uint32_t m"):]
+        imms = [int(h, 16) for h in re.findall(r"0x([0-9a-f]{8})U", body[:body.index("}")])]
+        want = [_limb(P, j) for j in range(first, 12, 2)]
+        assert imms == [x for x in want for _ in range(2)]       # lo and hi of each pair
     for entry in ("lh_g1_add", "lh_g1_dbl", "lh_g2_add", "lh_g2_dbl", "lh_curve_empty"):
         assert f'extern "C" int {entry}(' in src
+
+
+def test_source_layouts():
+    """The layouts the launcher runs, (points a block, lanes a unit), fit
+    their data: a pair's product column holds the product and sub-lane 1's
+    18-limb partial, its reduction scratch 24 64-bit sums and two 12-limb
+    partials; the pad limb puts a warp's units on distinct banks; shared
+    memory a block stays within the card's 227 KB for every operation."""
+    src = (CSRC / "curve_op.cu").read_text()
+    shape = src[src.index("struct Shape {"):]
+    shape = shape[:shape.index("};")]
+    fp = int(re.search(r"fp = (\d+) \* P;", shape).group(1))
+    w1, w2 = map(int, re.search(r"wide = \(L == 1 \? (\d+) : (\d+)\) \* P;", shape).groups())
+    rs = int(re.search(r"rs = L == 1 \? 0 : (\d+) \* P;", shape).group(1))
+    layouts = sorted({(int(a), int(b)) for a, b in re.findall(r"run<K, (\d+), (\d+)>", src)})
+    assert layouts == [(4, 2), (32, 1)]
+    assert fp >= 12 and w1 >= 24 and w2 >= 24 + 18 and rs >= 2 * 24 + 2 * 12
+    header = fused.k5_plan_header()
+    for op in fused.K5_OPS:
+        name = "".join(part.capitalize() for part in op.split("_"))
+        block = header[header.index(f"struct K5{name} {{"):]
+        k = {a: int(b) for a, b in re.findall(r"(\w+) = (\d+)", block[:block.index("};")])}
+        for pts, lanes in layouts:
+            units = 32 // (pts * lanes)
+            wide = (w1 if lanes == 1 else w2) * pts
+            assert len({u * wide % 32 for u in range(units)}) == units, (op, pts, lanes)
+            words = ((k["words"] + 3) // 4 * 4 + k["slots"] * fp * pts + k["wide"] * wide
+                     + k["warps"] * (0 if lanes == 1 else rs * pts))
+            assert 4 * words <= 232448, (op, pts, lanes)
 
 
 # --- The plain versions and the layouts ---------------------------------------
