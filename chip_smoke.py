@@ -16,11 +16,13 @@ Phases, each printing one JSON line:
             version's time and its bound. K4's operands carry the edge
             pairs of _k4_edge_pairs() in their first columns, K5's the edge
             points of _k5_edge_points() (infinity, P + P, P + (-P), O + O,
-            Z != 1), and K4 is held
+            Z != 1), K6's T and Q G2's edge points with P's coordinates
+            p.select(-3, i) of one tensor, and K4 is held
             at every edge pair at once at (12, m) and (m, 12, 1), mul_small
             at each k of K4_EDGE_KS (k_edges). K1, K2 and K4 are also timed
             at the paths' heavy operand shapes (K1_SHAPES with KZG's ladder
-            shapes, K2_SHAPES, K4_SHAPES, K5_SHAPES), each beside floor_ms,
+            shapes, K2_SHAPES, K4_SHAPES, K5_SHAPES, K6_SHAPES: both K6
+            modes at n = 2, 65, 4097 and 16385 pairs), each beside floor_ms,
             an empty kernel on its library's grid timed the same way (also
             at every n).
    wrapper  the host's cost of the parts of one K2 wrapper call (checks,
@@ -39,7 +41,9 @@ Phases, each printing one JSON line:
             replays the bucket's CUDA graphs: the launch counts are reset
             just before its first call (which runs each stage eagerly once
             and captures it) and read just after, and every kernel must have
-            been launched; a warm call must launch nothing from Python. Then
+            been launched (but OFF_PATH's, which no path launches since K6),
+            and none of OFF_PAIRING at the pairing's m + 1 = 65 pairs; a warm
+            call must launch nothing from Python. Then
             the eager run split into its stages for their wall times, and
             through the API: the same batch with one poisoned set in a
             shared-message group False, 256 one-key sets with distinct
@@ -62,7 +66,8 @@ Phases, each printing one JSON line:
             (C = [p(tau)]G1, W = [(p(tau) - y) / (tau - z)]G1), must verify
             True: as in verify, a watched eager run records each kernel's
             operand shapes and one more counts one verify's launches, then
-            the API's first call (KZG_REQUIRED must be launched) and a warm
+            the API's first call (KZG_REQUIRED must be launched, none of
+            OFF_PAIRING at the pairing's n = 2) and a warm
             one (nothing launched from Python), and an eager run is split
             at its stages (host, staging, stage A, stage B with the sums,
             pairing). Then through the API: by_root with two proofs swapped
@@ -137,8 +142,8 @@ Phases, each printing one JSON line:
             53 prepare, 14 h2g2, 14 pairing).
 8. profile  torch.profiler over one call of each unit (fp_add, fp_sub,
             fp_neg and fp_mul_small on equal shapes, fp_add broadcast and
-            strided, G1/G2 add and double: one CUDA kernel each, or the
-            phase fails; the Miller doubling and addition steps), over each
+            strided, G1/G2 add and double, the Miller doubling and addition
+            steps: one CUDA kernel each, or the phase fails), over each
             device stage of the headline and by_root verifies (a stage's
             kernels are the nodes a CUDA graph of it would hold), then over
             one warm eager headline verify and one warm by_root KZG verify:
@@ -265,16 +270,26 @@ K4_SHAPES = ((2, 12, 64), (2, 12, 65), (12, 4096), (2, 12, 4096), (6, 12, 4096))
 # They span both of K5's layouts (pairs of lanes up to 1024 points, one lane
 # a unit from 1025).
 K5 = ("g1_add", "g1_double", "g2_add", "g2_double")
+K6 = ("miller_dbl", "miller_add")
 K5_SHAPES = {"g1_add": ((3, 12, 16), (3, 12, 512), (3, 12, 4096), (2, 3, 12, 4096)),
              "g1_double": ((3, 12, 16), (3, 12, 512), (3, 12, 4096)),
              "g2_add": ((3, 2, 12, 64), (3, 2, 12, 65), (3, 2, 12, 4096), (3, 2, 12, 16384)),
              "g2_double": ((3, 2, 12, 64), (3, 2, 12, 4096), (3, 2, 12, 16384))}
+# K6's T shapes (P's coordinates at (12, n), strided as p_proj.select(-3, i)
+# gives them): KZG's two pairs, the headline's m + 1 = 65, 4097 pairs (4096
+# distinct messages) in the one-lane layout (past 1024 pairs), and
+# max_n_bucket() + 1 = 16385.
+K6_SHAPES = {name: ((3, 2, 12, 2), (3, 2, 12, 65), (3, 2, 12, 4097), (3, 2, 12, 16385))
+             for name in K6}
 # Libraries timed at main-path shapes beside an empty kernel on their grid:
 # library -> (empty entry point, shapes (or shapes per entry), phase tag).
 FLOORED = {"fp_mul": ("lh_fp_empty", K1_SHAPES, "k1"),
            "fp2_mul": ("lh_fp2_empty", K2_SHAPES, "k2"),
            "fp_add": ("lh_fp_add_empty", K4_SHAPES, "k4"),
-           "curve_op": ("lh_curve_empty", K5_SHAPES, "k5")}
+           "curve_op": ("lh_curve_empty", {**K5_SHAPES, **K6_SHAPES}, "k5")}
+# Kernels timed against an empty kernel of their own grid, not their
+# library's: K6 against one on the doubling step's.
+FLOOR_ENTRY = {name: "lh_miller_empty" for name in K6}
 HEADLINE = dict(n_sets=4096, keys=4, distinct=64)
 # KZG batches, one RPC response each: BlobsByRoot for one block
 # (MAX_BLOBS_PER_BLOCK = 6) and BlobsByRange for one epoch of full blocks
@@ -283,12 +298,19 @@ HEADLINE = dict(n_sets=4096, keys=4, distinct=64)
 KZG_BATCHES = {"by_root": 6, "by_range": 192}
 KZG_ELEMENTS = 4096
 # Kernels the KZG path cannot run without: the G1 ladders' group law and
-# Fp products, the modular additions, the Miller loop's Fp2 products and
-# G2 additions, and the final exponentiation's Fp12 products (no G2
-# doubling: the Miller doubling step is its own formula).
+# Fp products, the modular additions, the Miller steps (K6) and the final
+# exponentiation's Fp2 and Fp12 products (no K5 on G2: the Miller steps hold
+# the G2 doubling and addition).
 K4 = ("fp_add", "fp_sub", "fp_neg", "fp_mul_small")
-KZG_REQUIRED = (("fp_mul", "fp2_mul", "fp12_sqr", "fp12_mul", "fp12_line") + K4
-                + ("g1_add", "g1_double", "g2_add"))
+# Kernels no path launches since K6 folded the Miller steps' small
+# multiples into its schedule: held against their plain versions in the
+# kernels phase (every shape, n = 65 included), required on no path.
+OFF_PATH = ("fp_mul_small",)
+KZG_REQUIRED = (("fp_mul", "fp2_mul", "fp12_sqr", "fp12_mul", "fp12_line", "fp_add", "fp_sub",
+                 "fp_neg", "g1_add", "g1_double") + K6)
+# Kernels K6 took off the pairing's width (n = m + 1 pairs; KZG's 2): none
+# of them may launch at that n.
+OFF_PAIRING = ("fp_mul", "fp_sqr", "fp2_mul", "fp2_sqr") + K4 + ("g2_add", "g2_double")
 K4_EDGE_KS = (1, 3, 4, 8, 12, 65535)     # mul_small's k at the edge pairs
 K4_TIMED_K = 12     # the main path's largest k: three doublings and an add
 
@@ -328,6 +350,13 @@ WORK = {
     "g1_double": (2 * FP_SQR + 6 * FP_PROD + 7 * REDC, 2 * 144),
     "g2_add": (36 * FP_PROD + 18 * REDC, 3 * 288),
     "g2_double": (22 * FP_PROD + 14 * REDC, 2 * 288),
+    # K6, per pair, as its schedule needs them: the doubling step 42 Fp
+    # products (12, 24 and 6 a level) and 30 reductions (10, 14, 6), the
+    # addition step 66 (30, 30, 6) and 34 (16, 12, 6); T (and Q) read, 288
+    # bytes each, P's three coordinates read, 144, and T' and the line
+    # written, 576.
+    "miller_dbl": (42 * FP_PROD + 30 * REDC, 288 + 144 + 576),
+    "miller_add": (66 * FP_PROD + 34 * REDC, 2 * 288 + 144 + 576),
 }
 SOURCES = {
     "fp_mul": ("lighthouse_tpu_torch/ops/csrc/fp_mul.cu",
@@ -342,6 +371,13 @@ SOURCES = {
     "curve_op": ("lighthouse_tpu_torch/ops/csrc/curve_op.cu",
                  "none (no pallas_call): lighthouse_tpu/ops/bm/curves.py:100 add, :122 double, "
                  "fused by XLA"),
+    # K6, in K5's source, per kernel:
+    "miller_dbl": ("lighthouse_tpu_torch/ops/csrc/curve_op.cu",
+                   "none (no pallas_call): lighthouse_tpu/ops/bm/pairing.py:24 _dbl_step, "
+                   "fused by XLA in the lax.scan at :107"),
+    "miller_add": ("lighthouse_tpu_torch/ops/csrc/curve_op.cu",
+                   "none (no pallas_call): lighthouse_tpu/ops/bm/pairing.py:63 _add_step, "
+                   "fused by XLA"),
 }
 
 
@@ -491,9 +527,29 @@ def _raw_limbs(vals):
     return torch.where(t > 0x7FFFFFFF, t - (1 << 32), t).to(torch.int32).contiguous()
 
 
+def _operand_shapes(name, shape):
+    """The operand shapes of kernel `name` for a first operand of `shape`:
+    each operand of its kind's tail over the same lead axes and n."""
+    from lighthouse_tpu_torch.ops import fused
+
+    kinds = fused._KERNELS[name][2]
+    lead = tuple(shape[:-len(fused._TAIL[kinds[0]]) - 1])
+    return [lead + fused._TAIL[k] + (shape[-1],) for k in kinds]
+
+
 def _operands(name, shapes, gen):
     """Random operands of `name` at `shapes`; K4's first columns hold its
-    edge pairs, K5's its edge points (as many as fit)."""
+    edge pairs, K5's its edge points (as many as fit), K6's T and Q G2's edge
+    points and its P coordinates p.select(-3, i) of one (..., 3, 12, n)
+    tensor, as the pairing gives them."""
+    if name in K6:
+        pts = len(shapes) - 3
+        xs = [_rand_fp(tuple(shape), gen) for shape in shapes[:pts]]
+        p = _rand_fp(tuple(shapes[-1][:-2]) + (3,) + tuple(shapes[-1][-2:]), gen)
+        pairs = _k5_edge_points("G2")[:shapes[0][-1]]
+        for x, pt in zip(xs, zip(*pairs)):
+            x[..., :len(pt)] = _point_limbs(pt, "G2")
+        return xs + [p.select(-3, i) for i in range(3)]
     xs = [_rand_fp(tuple(shape), gen) for shape in shapes]
     if name in K4:
         pairs = _k4_edge_pairs()[:shapes[0][-1]]
@@ -520,6 +576,11 @@ def _check_equal(name, what, xs, k=K4_TIMED_K):
     got = _call(name, xs, k)
     ref = _call(name, xs, k, plain=True)
     _sync()
+    if isinstance(got, tuple):          # K6: the point and the line
+        if len(got) != len(ref) or any(g.shape != r.shape for g, r in zip(got, ref)):
+            raise AssertionError(f"{name} at {what}: outputs {[tuple(g.shape) for g in got]}, "
+                                 f"plain {[tuple(r.shape) for r in ref]}")
+        got, ref = torch.stack(got), torch.stack(ref)
     if got.shape != ref.shape:
         raise AssertionError(f"{name} at {what}: shape {tuple(got.shape)}, plain {tuple(ref.shape)}")
     diff = (got.to(torch.int64) & 0xFFFFFFFF) - (ref.to(torch.int64) & 0xFFFFFFFF)
@@ -554,15 +615,16 @@ def _k4_edges():
     return err
 
 
-def _floor(lib, shape, kind):
+def _floor(lib, shape, kind, name=None):
     """Graph-replay and call ms of an empty kernel on library `lib`'s grid
-    for an operand shape of its kernels, of operand kind `kind` (its tail
-    fused._TAIL[kind] + (n,)); None where the library has none."""
+    (or kernel `name`'s, FLOOR_ENTRY) for an operand shape of its kernels,
+    of operand kind `kind` (its tail fused._TAIL[kind] + (n,)); None where
+    the library has none."""
     import ctypes
 
     from lighthouse_tpu_torch.ops import _build, fused
 
-    fn = getattr(_build.library(lib), FLOORED[lib][0], None)
+    fn = getattr(_build.library(lib), FLOOR_ENTRY.get(name, FLOORED[lib][0]), None)
     if fn is None:
         return None, None
     fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p]
@@ -609,8 +671,8 @@ def _time_shapes(name, shapes, gen):
     lib, _, kinds = fused._KERNELS[name]
     per = {}
     for shape in shapes:
-        row = _timed(name, [tuple(shape)] * len(kinds), gen)
-        row["floor_ms"], row["floor_call_ms"] = _floor(lib, tuple(shape), kinds[0])
+        row = _timed(name, _operand_shapes(name, tuple(shape)), gen)
+        row["floor_ms"], row["floor_call_ms"] = _floor(lib, tuple(shape), kinds[0], name)
         per[str(tuple(shape))] = row
     return per
 
@@ -626,7 +688,7 @@ def phase_kernels():
         if lib in FLOORED:
             for n, row in per_n.items():
                 row["floor_ms"], row["floor_call_ms"] = _floor(
-                    lib, fused._TAIL[kinds[0]] + (n,), kinds[0])
+                    lib, fused._TAIL[kinds[0]] + (n,), kinds[0], name)
         results[name] = per_n
         emit({"phase": "kernels", "kernel": name, "tolerance": 0, "by_n": per_n,
               "library_ms": None, **({"k": K4_TIMED_K} if name == "fp_mul_small" else {})})
@@ -743,22 +805,22 @@ def _new_shapes(shapes, seen):
 
 def phase_main_path_shapes(shapes, phase="main_path_shapes", required=None):
     """Every kernel against its plain version at each operand shape a path
-    gave it (stacked leading rows included; K4 and K5 at each operand
-    layout, its strides, broadcasts and k), tolerance 0. Each kernel in `required`
-    (default: all) must have a recorded shape; the others are held at
-    theirs, if any."""
+    gave it (stacked leading rows included; K4, K5 and K6 at each operand
+    layout, its strides, broadcasts and k), tolerance 0. Each kernel in
+    `required` (default: all but OFF_PATH) must have a recorded shape; the
+    others are held at theirs, if any."""
     from lighthouse_tpu_torch.ops import fused
 
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(SEED + 1)
-    required = fused._KERNELS if required is None else required
+    required = _main_required() if required is None else required
     errs = {}
     for name in fused._KERNELS:
         if not shapes[name]:
             if name in required:
                 raise AssertionError(f"no {phase} recorded for {name}")
             continue
-        if name in K4 + K5:
+        if name in K4 + K5 + K6:
             err = 0
             for layout, k in sorted(shapes[name]):
                 xs = [_rand_fp(sh, gen, st) for sh, st in layout]
@@ -776,6 +838,21 @@ def phase_main_path_shapes(shapes, phase="main_path_shapes", required=None):
               "max_abs_err": errs[name], "shapes": recorded, **extra})
     fused.reset_launches()
     return errs
+
+
+def _main_required():
+    """The kernels the headline must launch: all but OFF_PATH."""
+    from lighthouse_tpu_torch.ops import fused
+
+    return [k for k in fused.launches if k not in OFF_PATH]
+
+
+def _off_pairing(by_n, n, what):
+    """No kernel of OFF_PAIRING launched at the pairing's width n (K6 holds
+    the Miller steps' products, additions and group law)."""
+    hit = {k: by_n[k][n] for k in OFF_PAIRING if by_n[k].get(n)}
+    if hit:
+        raise AssertionError(f"{what} launched {hit} at the pairing's n = {n}")
 
 
 def _sign_sets(api, count, keys, msg_of, key_base):
@@ -804,12 +881,12 @@ def _main_path_runs(verify, eager, what, required=None):
     point (the first captures the bucket's graphs: each stage once eagerly,
     then under capture; the warm one replays), with the launch counts reset
     just before each and read just after. Each kernel of `required`
-    (default: all) must be launched in the first, and none from Python in
-    the warm one. -> (launches of the first run, its wall s, the warm
+    (default: all but OFF_PATH) must be launched in the first, and none
+    from Python in the warm one. -> (launches of the first run, its wall s, the warm
     run's wall s)."""
     from lighthouse_tpu_torch.ops import fused
 
-    required = fused.launches if required is None else required
+    required = _main_required() if required is None else required
     fused.reset_launches()
     ok, first_s = _timed_verify(verify, *eager)
     launches = dict(fused.launches)
@@ -877,8 +954,8 @@ def _stage_seconds(stages, what):
 def _watched(fn):
     """fn() with every kernel call's operand shapes recorded -> (its result,
     {kernel: set of operand shapes}, {kernel: {operand n: calls}},
-    {kernel: {first operand's shape: calls}}). K4's and K5's records are of
-    operand layouts, ((shape, strides) per operand, k) (k = 0 but for
+    {kernel: {first operand's shape: calls}}). K4's, K5's and K6's records
+    are of operand layouts, ((shape, strides) per operand, k) (k = 0 but for
     mul_small), and K4's by_n also counts mul_small's calls per k under
     ("k", k)."""
     from lighthouse_tpu_torch.ops import fused
@@ -887,6 +964,7 @@ def _watched(fn):
     by_n = {name: {} for name in fused.launches}
     by_shape = {name: {} for name in fused.launches}
     run, run_additive, run_curve = fused._run, fused._run_additive, fused._run_curve
+    run_miller = fused._run_miller
 
     def count(name, xs):
         n = xs[0].shape[-1]
@@ -911,11 +989,18 @@ def _watched(fn):
         count(name, xs)
         return run_curve(name, xs)
 
+    def watch_miller(name, xs):
+        shapes[name].add((tuple((tuple(x.shape), tuple(x.stride())) for x in xs), 0))
+        count(name, xs)
+        return run_miller(name, xs)
+
     fused._run, fused._run_additive, fused._run_curve = watch, watch_additive, watch_curve
+    fused._run_miller = watch_miller
     try:
         out = fn()
     finally:
         fused._run, fused._run_additive, fused._run_curve = run, run_additive, run_curve
+        fused._run_miller = run_miller
     return out, shapes, by_n, by_shape
 
 
@@ -951,9 +1036,10 @@ def phase_verify():
     per_verify = dict(fused.launches)
     if ok is not True:
         raise AssertionError("headline batch did not verify")
-    missing = [k for k, v in per_verify.items() if v <= 0]
+    missing = [k for k in _main_required() if per_verify[k] <= 0]
     if missing:
         raise AssertionError(f"the eager headline verify launched no {missing}")
+    _off_pairing(by_n, HEADLINE["distinct"] + 1, "the headline")
     # The main path, the API: its first call captures the bucket's graphs.
     launches, first_s, wall_s = _main_path_runs(api.verify_signature_sets, (sets,),
                                                 "headline")
@@ -1015,7 +1101,8 @@ def phase_top_shapes(by_shape, lib):
            for name, _ in _entries(lib)}
     for name in top:
         per = _time_shapes(name, top[name], gen)
-        emit({"phase": f"{FLOORED[lib][2]}_shapes", "kernel": name, "tolerance": 0,
+        tag = "k6" if name in K6 else FLOORED[lib][2]
+        emit({"phase": f"{tag}_shapes", "kernel": name, "tolerance": 0,
               "launches": {str(sh): by_shape[name][sh] for sh in top[name]}, "by_shape": per})
     fused.reset_launches()
 
@@ -1179,6 +1266,7 @@ def phase_kzg():
         missing = [k for k in KZG_REQUIRED if per_verify[name][k] <= 0]
         if missing:
             raise AssertionError(f"the eager KZG verify ({name}) launched no {missing}")
+        _off_pairing(by_n, 2, f"KZG {name}")
         launches[name], first_s, wall_s = _main_path_runs(
             kzg.verify_blob_kzg_proof_batch, batch, f"KZG {name}", KZG_REQUIRED)
         runs[name] = {"blobs": len(batch[0]), "verified": ok, "wall_s": wall_s,
@@ -1589,14 +1677,14 @@ def phase_wide(base):
 
 def _eager_launches(verify, what):
     """One eager verify with the launch counts reset just before and read
-    just after: it must verify and launch every kernel."""
+    just after: it must verify and launch every kernel but OFF_PATH's."""
     from lighthouse_tpu_torch.ops import fused
 
     fused.reset_launches()
     ok = verify()
     launched = dict(fused.launches)
     # (A rehearsal on the CPU runs the plain versions: nothing is counted.)
-    missing = [k for k, v in launched.items() if v <= 0 and DEVICE == "cuda"]
+    missing = [k for k in _main_required() if launched[k] <= 0 and DEVICE == "cuda"]
     if ok is not True or missing:
         raise AssertionError(f"{what} on the eager path: verdict {ok}, launched no {missing}")
     return launched
@@ -1797,7 +1885,7 @@ def _units(gen):
     g1a, g1b = (_rand_fp((3, 12, n), gen) for _ in range(2))
     g2a, g2b = (_rand_fp((3, 2, 12, m), gen) for _ in range(2))
     t, q = (_rand_fp((3, 2, 12, m + 1), gen) for _ in range(2))
-    px, py, pz = (_rand_fp((12, m + 1), gen) for _ in range(3))
+    px, py, pz = _rand_fp((3, 12, m + 1), gen).unbind(0)     # p_proj.select(-3, i)
     return {
         "fp_add": lambda: fused.fp_add(a, b),
         "fp_sub": lambda: fused.fp_sub(a, b),
@@ -1829,7 +1917,8 @@ def phase_profile(headline, kzg_by_root):
         _, tr, launched = _profiled(fn)
         per_unit[name] = {"kernels": tr["kernels"], "wrapper_launches": sum(launched.values()),
                           "busy_ms": tr["busy_ms"]}
-    for name in ("fp_add", "fp_sub", "fp_add_broadcast", "fp_add_strided") + K5:
+    for name in (("fp_add", "fp_sub", "fp_add_broadcast", "fp_add_strided") + K5
+                 + ("miller_dbl_step", "miller_add_step")):
         if per_unit[name]["kernels"] != 1:
             raise AssertionError(f"{name} ran {per_unit[name]['kernels']} CUDA kernels, not 1")
     per_stage = {}
@@ -2542,10 +2631,10 @@ def _summary(kernels, by_shape, launches, shape_errs, launches_kzg, per_verify=N
 
     summary = []
     for name, per_n in kernels.items():
-        lib = fused._KERNELS[name][0]
+        source, replaces = SOURCES.get(name, SOURCES[fused._KERNELS[name][0]])
         top = per_n[max(NS)]
-        summary.append({"name": name, "route": "cuda", "source": SOURCES[lib][0],
-                        "replaces": SOURCES[lib][1], "launches": launches.get(name),
+        summary.append({"name": name, "route": "cuda", "source": source,
+                        "replaces": replaces, "launches": launches.get(name),
                         "max_abs_err": max([shape_errs.get(name, 0)]
                                            + [v["max_abs_err"] for v in per_n.values()]),
                         "ms": top["ms"], "plain_ms": top["plain_ms"],

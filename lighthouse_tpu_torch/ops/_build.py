@@ -41,9 +41,10 @@ def _sig(n_ptr: int, n_int: int = 2) -> list:
 # C entry points per library: name -> argument types. Most take (output,
 # inputs..., rows, n, stream); K4's and K5's take (output, inputs..., rows,
 # n, [k,] geometry, stream), the geometry a pointer to int64 strides or null
-# (csrc/fp_add.cu, csrc/curve_op.cu). lh_fp_empty, lh_fp2_empty,
-# lh_fp_add_empty and lh_curve_empty launch an empty kernel on K1's, K2's,
-# K4's and K5's grid: chip_smoke.py's floor.
+# (csrc/fp_add.cu, csrc/curve_op.cu), K6's two outputs (the point, the
+# line) first. lh_fp_empty, lh_fp2_empty, lh_fp_add_empty, lh_curve_empty
+# and lh_miller_empty launch an empty kernel on K1's, K2's, K4's, K5's and
+# K6's grid: chip_smoke.py's floor.
 ENTRY_POINTS = {
     "fp_mul": {"lh_fp_mul": _sig(3), "lh_fp_sqr": _sig(2), "lh_fp_empty": _sig(1)},
     "fp2_mul": {"lh_fp2_mul": _sig(3), "lh_fp2_sqr": _sig(2), "lh_fp2_empty": _sig(1)},
@@ -53,7 +54,8 @@ ENTRY_POINTS = {
                "lh_fp_add_empty": _sig(1)},
     "curve_op": {"lh_g1_add": _sig(3) + [_PTR], "lh_g1_dbl": _sig(2) + [_PTR],
                  "lh_g2_add": _sig(3) + [_PTR], "lh_g2_dbl": _sig(2) + [_PTR],
-                 "lh_curve_empty": _sig(1)},
+                 "lh_miller_dbl": _sig(6) + [_PTR], "lh_miller_add": _sig(7) + [_PTR],
+                 "lh_curve_empty": _sig(1), "lh_miller_empty": _sig(1)},
 }
 
 _LIBS: dict = {}

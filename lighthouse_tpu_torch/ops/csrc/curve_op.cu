@@ -1,6 +1,8 @@
 // K5: the complete G1 / G2 group law, p + q and 2 p, one launch a call, over
 // projective points (X : Y : Z) in Montgomery limbs, canonical in [0, p):
 //   G1 (..., 3, 12, n)        G2 (..., 3, 2, 12, n)
+// K6 (below K5, the same engine): the Miller loop's doubling and addition
+// steps, one launch a step.
 //
 // No Pallas kernel computes these: the JAX package writes the
 // Renes-Costello-Batina complete formulas for a = 0 as stacked field
@@ -117,6 +119,46 @@
 // be allowed it (cudaFuncSetAttribute), which the launcher does once per
 // device and layout at its first call, before the graphs that capture it
 // (they run each stage once eagerly first).
+//
+// K6: the Miller loop's doubling step (2T and the tangent line at T) and
+// addition step (T + Q and the line through T and Q), each line evaluated at
+// P and homogenized by its Z, for n pairs: T, Q (..., 3, 2, 12, n), px, py,
+// pz (..., 12, n), read in place as p_proj.select(-3, i) gives them. No
+// Pallas kernel computes these either: lighthouse_tpu/ops/bm/pairing.py:24
+// _dbl_step and :63 _add_step are array code that XLA fuses into the
+// lax.scan body at :107 / :112. Here they were 30 and 18 kernels a step
+// (K1, K2, K4, K5 and the torch.stack copies of their operands, 48.6 and
+// 37.2 us on the card at 65 pairs); K6 is one launch, which writes the
+// point and the line (l0, l1, l2) (..., 3, 2, 12, n) as K3's fp12_mul_line
+// reads it. Its schedule (ops/fused.py k5_schedule) has three levels:
+//   doubling  level 0 Y^2, YZ, Z^2, XY, X^2 (12 Fp products, 10
+//             reductions); level 1 K5's doubling products and X^2 X,
+//             YZ Z, Y^2 Z, X^2 Z (24, 14: the point, flagged to the output,
+//             and 2 xi YZ^2, 3 X^2 Z, X^3, Y^2 Z into slots); level 2
+//             l0 = 2 xi YZ^2 py, l1 = (3 X^3 - 2 Y^2 Z) pz, l2 = -3 X^2 Z
+//             px (6 Fp products by P's coordinates, 6 reductions);
+//   addition  level 0 K5's g2_add products and yq Z1, xq Z1, Y1 zq, X1 zq
+//             (30, 16: n and d folded into the reductions); level 1 K5's
+//             and d Z1, n X1, n Z1, d Y1 (30, 12); level 2 l0 = xi d Z1 py,
+//             l1 = (n X1 - d Y1) pz, l2 = -n Z1 px (6, 6).
+// Every linear piece ([3b], the small multiples, xi, the sums and the
+// line's negation) is an operand's combination or a reduction's signed
+// coefficients, within K5's bounds; a reduction's slot is the lowest that
+// no later level reads. It needs 10,368 (doubling) and 14,400 (addition)
+// multiply-adds a pair against 1,008 and 1,296 bytes: bound by operations.
+// K6 keeps K5's layouts; one lane a unit takes 16 points a block, where 32
+// would take 768 and 960 threads (24 and 30 units a point). On the card
+// (graph-replay us, NVIDIA H100 80GB HBM3, 700 W, chip_smoke.py): the
+// doubling step 11.0-11.1 at 2-65 pairs, 22.7 at 4097, 84-85 at 16385; the
+// addition step 12.4-12.6, 35.4-35.8, 137-139; ptxas (nvcc 12.9) 78-93
+// registers a thread, no spills. Sharing the engine (operands by index,
+// three levels, the output flag) costs K5 up to 0.4 us a call: G1 double
+// 6.5-6.8 -> 6.9-7.1 at n = 1-64, G2 double 7.5-7.7 -> 7.7-7.9, G1 add
+// 8.7-8.8 -> 9.0-9.2 at 4096, G2 add within 0.2 (the same card, the two
+// sources in turns). Tried and dropped, each within 0.1 us of this source:
+// operands selected over static indices (no indexed parameter), with
+// __ldg or plain loads; K5's output test and address resolved at compile
+// time.
 #include <atomic>
 
 #include "fp.cuh"
@@ -127,6 +169,7 @@ namespace {
 constexpr int kMulWords = 2 * LH_K5_LIN;
 constexpr int kRedWords = 1 + LH_K5_RED;
 constexpr uint32_t kHas = 1u << 31;
+constexpr uint32_t kOut = 1u << 24;   // a reduction's head: to the output
 
 // Element strides of one operand over the output's (r1, r0) rows, its
 // coordinate, component (G2), limb and column axes; a broadcast axis has
@@ -139,6 +182,16 @@ struct Grid {
   uint32_t total, n, r0;
 };
 
+// A launch's operands, in the order of the schedule's inputs: the points
+// (K5: p, then q for an add; K6: T, then Q for an addition step), then
+// P's coordinates px, py, pz (K6), each an Fp read with stride 0 on the
+// coordinate and component axes.
+constexpr int kMaxOps = 5;
+struct Operands {
+  const uint32_t* ptr[kMaxOps];
+  Geom geom[kMaxOps];
+};
+
 // clock64 stamps of block 0's thread 0 at the steps of its path, read by
 // scripts/probe_k5.py stamps, which builds this file with -DLH_K5_STAMPS;
 // otherwise they compile to nothing. Level -1 is the loads (0 start, 1
@@ -147,9 +200,10 @@ struct Grid {
 // done, 8 barrier.
 #ifdef LH_K5_STAMPS
 __device__ long long g_k5_stamp[3][9];
-#define LH_K5_STAMP(level, step)                                                 \
-  do {                                                                           \
-    if (blockIdx.x == 0 && threadIdx.x == 0) g_k5_stamp[(level) + 1][step] = clock64(); \
+#define LH_K5_STAMP(level, step)                                                  \
+  do {                                                                            \
+    if (blockIdx.x == 0 && threadIdx.x == 0 && (level) < 2)                       \
+      g_k5_stamp[(level) + 1][step] = clock64();                                  \
   } while (0)
 #else
 #define LH_K5_STAMP(level, step) \
@@ -526,8 +580,8 @@ __device__ __forceinline__ void reduce(const uint32_t* rec, const uint32_t* prod
 
 template <class K, int P, int L>
 __global__ void __launch_bounds__(Shape<K, P, L>::warps * 32, Shape<K, P, L>::min_blocks)
-curve_kernel(uint32_t* __restrict__ out, const uint32_t* __restrict__ a,
-             const uint32_t* __restrict__ b, Geom ga, Geom gb, Grid g) {
+curve_kernel(uint32_t* __restrict__ out, uint32_t* __restrict__ line, const Operands ops,
+             Grid g) {
   using S = Shape<K, P, L>;
   extern __shared__ __align__(16) uint32_t smem[];
   const int r = threadIdx.x % L, up = threadIdx.x / L;
@@ -538,12 +592,14 @@ curve_kernel(uint32_t* __restrict__ out, const uint32_t* __restrict__ a,
   uint32_t* prod = smem + S::plan + K::slots * S::fp + q;
   uint32_t* scratch = smem + S::plan + K::slots * S::fp + K::wide * S::wide + u * S::rs;
 
-  // Load: unit f < inputs loads input Fp f of its point, of operand
-  // f / (3 comps), coordinate (f / comps) % 3, component f % comps, sub-lane
-  // r its limbs r + L i; every thread loads its share of the schedule. All
-  // loads are issued before the first shared store (a warp issues in order:
-  // a store waiting on its load would hold back the loads after it). A point
-  // past the end computes on zeros and stores nothing.
+  // Load: unit f < inputs loads input Fp f of its point: below the points'
+  // 3 comps Fp values each, of point operand f / (3 comps), coordinate
+  // (f / comps) % 3, component f % comps; past them, P's coordinate
+  // operand; sub-lane r its limbs r + L i. Every thread loads its share of
+  // the schedule. All loads are issued before the first shared store (a
+  // warp issues in order: a store waiting on its load would hold back the
+  // loads after it). A point past the end computes on zeros and stores
+  // nothing.
   static_assert(K::inputs <= K::warps, "one input Fp per unit");
   constexpr int kThreads = S::warps * 32;
   constexpr int kPer = (K::words + kThreads - 1) / kThreads;
@@ -553,14 +609,16 @@ curve_kernel(uint32_t* __restrict__ out, const uint32_t* __restrict__ a,
   const uint32_t row = live ? e / g.n : 0, j = live ? e - row * g.n : 0;
   const uint32_t r1 = row / g.r0, r0 = row - r1 * g.r0;
   uint32_t x[lh::NL / L], pw[kPer];
+  constexpr int kPt = 3 * K::comps;             // Fp values a point
+  constexpr int kPts = K::inputs - K::fps;        // the points' Fp values
   if (u < K::inputs) {
-    const bool second = u >= 3 * K::comps;
-    const Geom gm = second ? gb : ga;
-    const int f = second ? u - 3 * K::comps : u;
-    const uint32_t* src = (second ? b : a) + r1 * gm.s1 + r0 * gm.s0 + (f / K::comps) * gm.sc +
+    const int o = u < kPts ? u / kPt : kPts / kPt + (u - kPts);
+    const int f = u < kPts ? u % kPt : 0;
+    const Geom gm = ops.geom[o];
+    const uint32_t* src = ops.ptr[o] + r1 * gm.s1 + r0 * gm.s0 + (f / K::comps) * gm.sc +
                           (f % K::comps) * gm.sk + j * gm.sn;
 #pragma unroll
-    for (int i = 0; i < lh::NL / L; ++i) x[i] = live ? src[(r + L * i) * gm.sl] : 0u;
+    for (int i = 0; i < lh::NL / L; ++i) x[i] = live ? __ldg(src + (r + L * i) * gm.sl) : 0u;
   }
 #pragma unroll
   for (int k = 0; k < kPer; ++k) {
@@ -579,16 +637,19 @@ curve_kernel(uint32_t* __restrict__ out, const uint32_t* __restrict__ a,
   LH_K5_STAMP(-1, 1);
   __syncthreads();
 
-  // Two levels, one copy of their code: products, then reductions, level
-  // 0's into the slots (every product has read the inputs by the barrier
-  // between), level 1's into the output (rows, 3, comps, 12, n), Fp index
-  // coordinate * comps + component; both lanes of a unit hold the value and
-  // store all its limbs.
+  // The levels (two for K5, three for K6), one copy of their code:
+  // products, then reductions, each into its slot (every product of the
+  // level has read the slots by the barrier between) or, the last level's
+  // and those flagged kOut, into the output (rows, 3, comps, 12, n), Fp
+  // index coordinate * comps + component, the indices past the point's
+  // into the line (K6, the same layout); both lanes of a unit hold the
+  // value and store all its limbs.
   const uint32_t* rec = plan;
   const long long fp = lh::NL * (long long)g.n;
 #pragma unroll 1
-  for (int level = 0; level < 2; ++level) {
-    const int np = level ? K::np1 : K::np0, nr = level ? K::nr1 : K::nr0;
+  for (int level = 0; level < K::levels; ++level) {
+    const int np = level == 0 ? K::np0 : level == 1 ? K::np1 : K::np2;
+    const int nr = level == 0 ? K::nr0 : level == 1 ? K::nr1 : K::nr2;
     if (u < np) product<P, S::fp, L>(rec + u * kMulWords, slots, prod + u * S::wide, level, r, pair);
     LH_K5_STAMP(level, 2);
     rec += np * kMulWords;
@@ -600,9 +661,9 @@ curve_kernel(uint32_t* __restrict__ out, const uint32_t* __restrict__ a,
       reduce<P, S::wide, L>(rr, prod, scratch, q, r, pair, level, v);
       LH_K5_STAMP(level, 7);
       const uint32_t dest = (rr[0] >> 8) & 0xffu;
-      if (level) {
+      if (level == K::levels - 1 || (rr[0] & kOut)) {
         if (live) {
-          uint32_t* dst = out + row * (3 * K::comps * fp) + dest * fp + j;
+          uint32_t* dst = (dest < kPt ? out : line) + row * (kPt * fp) + (dest % kPt) * fp + j;
 #pragma unroll
           for (int l = 0; l < lh::NL; ++l) dst[l * (long long)g.n] = v[l];
         }
@@ -638,71 +699,115 @@ int allow_smem() {
 // point (32 points a block) would leave most of the card idle, pairs of
 // lanes a unit and 4 points a block, which spread the call over more SMs
 // and halve each lane's chains; from 1025, where the grid fills the card,
-// one lane a unit at 32 points a block (no divergence, no exchanges).
+// one lane a unit at kLaneP points a block: 32 (no divergence, no
+// exchanges) where the block stays within 576 threads, else 16 (K6's 24 and
+// 30 units a point: 384 and 480 threads, where 32 points would hold 768
+// and 960 threads of at most 85 and 68 registers).
 constexpr long long kPairsUpTo = 1024;
+constexpr int kLaneThreads = 576;
+template <class K>
+constexpr int kLaneP = K::warps * 32 <= kLaneThreads ? 32 : 16;
 
 template <class K, int P, int L>
-int run(void* out, const void* a, const void* b, Geom ga, Geom gb, Grid g, void* stream) {
+int run(void* out, void* line, const Operands& ops, Grid g, void* stream) {
   const int e = allow_smem<K, P, L>();
   if (e != 0) return e;
   curve_kernel<K, P, L><<<(g.total + P - 1) / P, Shape<K, P, L>::warps * 32,
                           4 * Shape<K, P, L>::words, (cudaStream_t)stream>>>(
-      (uint32_t*)out, (const uint32_t*)a, (const uint32_t*)b, ga, gb, g);
+      (uint32_t*)out, (uint32_t*)line, ops, g);
   return (int)cudaGetLastError();
 }
 
-// geom: null for dense operands (each of the output's shape and contiguous),
-// else r0 and then each operand's six element strides s1, s0 (the two row
-// levels), sc (coordinate), sk (component), sl (limb) and sn (column).
+// ops: the operands' pointers in the schedule's order (the points, then
+// P's coordinates). geom: null for dense points (each of the output's
+// shape and contiguous; K6 always passes one), else r0 and then each
+// operand's six element strides s1, s0 (the two row levels), sc
+// (coordinate), sk (component), sl (limb) and sn (column).
 template <class K>
-int launch(void* out, const void* a, const void* b, long long rows, long long n,
+int launch(void* out, void* line, const void* const* ops, long long rows, long long n,
            const long long* geom, void* stream) {
-  constexpr bool kTwo = K::inputs == 6 * K::comps;
+  constexpr int kOps = (K::inputs - K::fps) / (3 * K::comps) + K::fps;
+  static_assert(kOps <= kMaxOps, "operands");
   const long long fp = lh::NL * n;
   const long long r0 = geom ? geom[0] : rows;
-  const Geom dense{0, 3 * K::comps * fp, K::comps * fp, fp, n, 1};
-  const Geom ga = geom ? Geom{geom[1], geom[2], geom[3], geom[4], geom[5], geom[6]} : dense;
-  const Geom gb = geom && kTwo ? Geom{geom[7], geom[8], geom[9], geom[10], geom[11], geom[12]}
-                               : ga;
-  if (rows * n >= (1ll << 31) || r0 < 1 || rows % r0 != 0) return (int)cudaErrorInvalidValue;
+  if (rows * n >= (1ll << 31) || r0 < 1 || rows % r0 != 0 || (K::fps && !geom))
+    return (int)cudaErrorInvalidValue;
+  Operands o{};
+  for (int k = 0; k < kOps; ++k) {
+    const long long* s = geom ? geom + 1 + 6 * k : nullptr;
+    o.ptr[k] = (const uint32_t*)ops[k];
+    o.geom[k] = s ? Geom{s[0], s[1], s[2], s[3], s[4], s[5]}
+                  : Geom{0, 3 * K::comps * fp, K::comps * fp, fp, n, 1};
+  }
   const Grid g{(uint32_t)(rows * n), (uint32_t)n, (uint32_t)r0};
-  return rows * n <= kPairsUpTo ? run<K, 4, 2>(out, a, b, ga, gb, g, stream)
-                                : run<K, 32, 1>(out, a, b, ga, gb, g, stream);
+  return rows * n <= kPairsUpTo ? run<K, 4, 2>(out, line, o, g, stream)
+                                : run<K, kLaneP<K>, 1>(out, line, o, g, stream);
+}
+
+// An empty kernel on K's grid for (rows, n) (the layout the launcher picks:
+// its blocks and warps): the launch floor a kernel is timed against
+// (chip_smoke.py floor_ms). Not a kernel of the port.
+template <class K>
+int empty_launch(long long rows, long long n, void* stream) {
+  const long long points = rows * n;
+  const bool pairs = points <= kPairsUpTo;
+  const int p = pairs ? 4 : kLaneP<K>;
+  const int warps = pairs ? Shape<K, 4, 2>::warps : Shape<K, kLaneP<K>, 1>::warps;
+  empty_kernel<<<(unsigned)((points + p - 1) / p), warps * 32, 0, (cudaStream_t)stream>>>();
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" int lh_g1_add(void* out, const void* a, const void* b, long long rows, long long n,
                          const long long* geom, void* stream) {
-  return launch<K5G1Add>(out, a, b, rows, n, geom, stream);
+  const void* ops[] = {a, b};
+  return launch<K5G1Add>(out, nullptr, ops, rows, n, geom, stream);
 }
 
 extern "C" int lh_g1_dbl(void* out, const void* a, long long rows, long long n,
                          const long long* geom, void* stream) {
-  return launch<K5G1Double>(out, a, a, rows, n, geom, stream);
+  return launch<K5G1Double>(out, nullptr, &a, rows, n, geom, stream);
 }
 
 extern "C" int lh_g2_add(void* out, const void* a, const void* b, long long rows, long long n,
                          const long long* geom, void* stream) {
-  return launch<K5G2Add>(out, a, b, rows, n, geom, stream);
+  const void* ops[] = {a, b};
+  return launch<K5G2Add>(out, nullptr, ops, rows, n, geom, stream);
 }
 
 extern "C" int lh_g2_dbl(void* out, const void* a, long long rows, long long n,
                          const long long* geom, void* stream) {
-  return launch<K5G2Double>(out, a, a, rows, n, geom, stream);
+  return launch<K5G2Double>(out, nullptr, &a, rows, n, geom, stream);
 }
 
-// An empty kernel on G1 add's grid for (rows, n) (the layout the launcher
-// picks: its blocks and warps): the launch floor K5 is timed against
-// (chip_smoke.py floor_ms). Not a kernel of the port.
+// K6: 2T (into out) and the tangent line at T evaluated at P (into line),
+// T (rows, 3, 2, 12, n), px, py, pz (rows, 12, n), as the geometry says.
+extern "C" int lh_miller_dbl(void* out, void* line, const void* t, const void* px,
+                             const void* py, const void* pz, long long rows, long long n,
+                             const long long* geom, void* stream) {
+  const void* ops[] = {t, px, py, pz};
+  return launch<K6MillerDbl>(out, line, ops, rows, n, geom, stream);
+}
+
+// K6: T + Q and the line through T and Q evaluated at P.
+extern "C" int lh_miller_add(void* out, void* line, const void* t, const void* q,
+                             const void* px, const void* py, const void* pz, long long rows,
+                             long long n, const long long* geom, void* stream) {
+  const void* ops[] = {t, q, px, py, pz};
+  return launch<K6MillerAdd>(out, line, ops, rows, n, geom, stream);
+}
+
+// The floors: an empty kernel on G1 add's grid (K5) and on the doubling
+// step's (K6).
 extern "C" int lh_curve_empty(void* out, long long rows, long long n, void* stream) {
   (void)out;
-  const long long points = rows * n;
-  const bool pairs = points <= kPairsUpTo;
-  const int p = pairs ? 4 : 32;
-  const int warps = pairs ? Shape<K5G1Add, 4, 2>::warps : Shape<K5G1Add, 32, 1>::warps;
-  empty_kernel<<<(unsigned)((points + p - 1) / p), warps * 32, 0, (cudaStream_t)stream>>>();
-  return (int)cudaGetLastError();
+  return empty_launch<K5G1Add>(rows, n, stream);
+}
+
+extern "C" int lh_miller_empty(void* out, long long rows, long long n, void* stream) {
+  (void)out;
+  return empty_launch<K6MillerDbl>(rows, n, stream);
 }
 
 #ifdef LH_K5_STAMPS

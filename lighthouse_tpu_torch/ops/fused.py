@@ -1,5 +1,5 @@
-"""The port's four hand-written kernels, their plain PyTorch versions and
-their launch counts.
+"""The port's hand-written kernels, their plain PyTorch versions and their
+launch counts.
 
 Counterparts: ``lighthouse_tpu/ops/fused.py`` (the Pallas kernels) and the
 XLA field/tower products they fuse, ``ops/limbs.py`` / ``ops/tower.py``
@@ -16,6 +16,10 @@ XLA field/tower products they fuse, ``ops/limbs.py`` / ``ops/tower.py``
                              csrc/curve_op.cu  no Pallas counterpart: the complete group
                                                law XLA fuses (ops/bm/curves.py:100 add,
                                                :122 double)
+    K6  miller_dbl / miller_add
+                             csrc/curve_op.cu  no Pallas counterpart: the Miller-loop steps
+                                               XLA fuses (ops/bm/pairing.py:24 _dbl_step,
+                                               :63 _add_step), on K5's engine
 
 Representation (one for the whole port): an Fp element is 12 little-endian
 32-bit limbs of its Montgomery form x * 2^384 mod p, canonical in [0, p),
@@ -60,7 +64,10 @@ K5 needs 3,024 (G1 add) to 7,776 (G2 add) multiply-adds per 432-864 bytes
 a point, bound by operations, but at the paths' widths (16-4096 points) it
 is its launch floor plus one block's critical path: its schedule
 (``k5_schedule``) runs each level's independent Fp products on parallel
-warps of a block of 32 points, with intermediates in shared memory.
+units (lanes or pairs of lanes) of a block, with intermediates in shared
+memory. K6 runs a Miller step's G2 doubling or addition and its line at P
+as three levels of the same schedule: 10,368 and 14,400 multiply-adds a
+pair against 1,008 and 1,296 bytes, bound by operations.
 """
 
 import ctypes
@@ -82,6 +89,7 @@ launches = {
     "fp12_sqr": 0, "fp12_mul": 0, "fp12_line": 0,
     "fp_add": 0, "fp_sub": 0, "fp_neg": 0, "fp_mul_small": 0,
     "g1_add": 0, "g1_double": 0, "g2_add": 0, "g2_double": 0,
+    "miller_dbl": 0, "miller_add": 0,
 }
 
 
@@ -520,38 +528,48 @@ def fp_mul_small_plain(a, k: int):
     return acc
 
 
-# --- K5: the group law's schedule --------------------------------------------
+# --- K5 and K6: the schedule of csrc/curve_op.cu ------------------------------
 #
 # K5 (csrc/curve_op.cu) runs one complete Renes-Costello-Batina addition or
-# doubling (a = 0) per point in two levels, each a step of independent Fp
-# products and then a step of reductions, one unit of the block (a lane, or
-# a pair of lanes, of a warp) per product and per reduced Fp value. Its
-# schedule is written here once per operation,
-# from the formulas of curves._Group (``_add_plain`` / ``_double_plain``), and
-# handed to the kernel as the generated header curve_plan.h:
+# doubling (a = 0) per point in two levels, and K6 (the same source, the same
+# engine) one Miller-loop step per pair in three: a level is a step of
+# independent Fp products and then a step of reductions, one unit of the
+# block (a lane, or a pair of lanes, of a warp) per product and per reduced
+# Fp value. The schedule is written here once per operation, from the
+# formulas of curves._Group (``_add_plain`` / ``_double_plain``) and
+# pairing (``_dbl_step_plain`` / ``_add_step_plain``), and handed to the
+# kernel as the generated header curve_plan.h:
 #
 #   product   W = A B, 24 limbs, unreduced; A and B are each a linear
 #             combination sum_k c_k s_k of Fp values in the block's slots
-#             (the inputs, or level 0's reductions), evaluated canonically
-#             mod p (K4's chains for +-1 coefficients, else one pass with a
-#             quotient estimate: K5_INV_HI), so W < p^2;
+#             (the inputs, or earlier levels' reductions), evaluated
+#             canonically mod p (K4's chains for +-1 coefficients, else one
+#             pass with a quotient estimate: K5_INV_HI), so W < p^2; a term
+#             may be an Fp of P (K6), which multiplies each component of an
+#             Fp2 in a product of its own;
 #   reduce    an Fp value REDC(T), T = o p^2 + sum_i d_i W_i, o the sum of
 #             the subtracted |d_i|: 0 <= T <= (sum_i |d_i|) p^2 <= 9 p^2 <
 #             p 2^384 (2^384 / p > 9.8), so REDC is canonical.
 # An Fp2 product is Karatsuba's three Fp products (a square two:
 # (a0 + a1)(a0 - a1) and 2 a0 a1), and a reduction folds the Fp2
-# reduction and the formula's sums of products into one REDC. Level 0's
-# reductions overwrite the input slots (every product has read them by
-# then); level 1's go to the output, Fp index coordinate * comps + component.
+# reduction and the formula's sums of products (xi, small multiples, the
+# line's negation) into one REDC. A reduction goes to a slot, the lowest
+# one that no later level reads (every product of its level has read the
+# slots by then), or to the output, Fp index coordinate * comps +
+# component of the result point, then of the line (K6): the last level's
+# always, an earlier level's where its destination carries K5_OUT.
 #
 # Words per product: K5_LIN per operand, a term kHas | slot | |c| << 8 |
 # (c < 0) << 24, then zeros. Per reduction: a head o | destination << 8 |
-# terms << 16, then K5_RED terms kHas | product | |d| << 8 | (d < 0) << 16.
+# terms << 16 (K5_OUT at bit 24), then K5_RED terms kHas | product | |d| << 8
+# | (d < 0) << 16.
 
 K5_OPS = ("g1_add", "g1_double", "g2_add", "g2_double")
+K6_OPS = ("miller_dbl", "miller_add")
 K5_LIN = 4
 K5_RED = 9
 K5_HAS = 1 << 31
+K5_OUT = 1 << 16                       # a destination flag: to the output
 K5_REDC_BOUND = P << R_BITS            # REDC is canonical for 0 <= T < p 2^384
 
 
@@ -586,11 +604,16 @@ def _comb(*terms):
     return tuple(_sum(*((c, x[i]) for c, x in terms)) for i in range(len(terms[0][1])))
 
 
+def _xi(x, c: int = 1):
+    """c xi x for an Fp2 value x (xi = 1 + u)."""
+    return _sum((c, x[0]), (-c, x[1])), _sum((c, x[0]), (c, x[1]))
+
+
 class _K5Level:
     """One level of the schedule: its products and its reductions."""
 
-    def __init__(self, comps: int):
-        self.comps = comps
+    def __init__(self, plan, index: int):
+        self.plan, self.index, self.comps = plan, index, plan.comps
         self.products, self.reds = [], []
 
     def _mul(self, x, y):
@@ -610,57 +633,139 @@ class _K5Level:
         w0 = self._mul(_sum((1, a[0]), (1, a[1])), _sum((1, a[0]), (-1, a[1])))
         return w0, _sum((2, self._mul(a[0], a[1])))
 
+    def mul_fp(self, a, s):
+        """a (each component) times the Fp s: one product a component."""
+        return tuple(self._mul(x, s[0]) for x in a)
+
     def reduce(self, *values, out: bool = False):
-        """Reduce each value's components; level 0's go to fresh slots (as
-        values of the next level), level 1's to the output."""
+        """Reduce each value's components: into slots, as values of the
+        later levels, or with `out` to the output's next Fp indices."""
         got = []
         for v in values:
             slots = []
             for sums in v:
-                dest = len(self.reds)
-                self.reds.append((dest, sum(-d for d in sums.values() if d < 0), sums))
-                slots.append({dest: 1})
+                if out:
+                    dest = self.plan.n_out
+                    self.plan.n_out += 1
+                else:
+                    dest = ("slot", self.index, len(self.reds))
+                    slots.append({dest: 1})
+                self.reds.append((dest, sum(-d for d in sums.values() if d < 0), sums, out))
             got.append(tuple(slots))
         return None if out else got
+
+
+class _K5Plan:
+    """A schedule being written: its inputs (Fp values of the points, then
+    of P) and its levels."""
+
+    def __init__(self, comps: int, points: int, fps: int, levels: int):
+        self.comps, self.n_out = comps, 0
+        pt = [tuple({comps * i + c: 1} for c in range(comps)) for i in range(3 * points)]
+        self.points = [pt[3 * k:3 * k + 3] for k in range(points)]
+        base = 3 * comps * points
+        self.fps = [({base + i: 1},) for i in range(fps)]
+        self.inputs = base + fps
+        self.levels = [_K5Level(self, i) for i in range(levels)]
+
+    def finish(self):
+        """-> the levels [(products, reductions)] with the slots placed."""
+        where = {i: i for i in range(self.inputs)}
+        for lv in self.levels:
+            later = {k for up in self.levels[lv.index + 1:]
+                     for x, y in up.products for k in (*x, *y)}
+            busy = {where[k] for k in later if k in where}
+            free = (i for i in range(256) if i not in busy)
+            for dest, _, _, out in lv.reds:
+                if not out:
+                    where[dest] = next(free)
+        last = len(self.levels) - 1
+        levels = []
+        for lv in self.levels:
+            products = [tuple({where[k]: c for k, c in lin.items()} for lin in xy)
+                        for xy in lv.products]
+            reds = [(dest | (K5_OUT if lv.index < last else 0) if out else where[dest], off, sums)
+                    for dest, off, sums, out in lv.reds]
+            levels.append((products, reds))
+        return levels
+
+
+def _rcb_double(l0, l1, p, b3):
+    """The complete doubling of point p over two levels: -> level 0's
+    reductions Y^2, YZ, Z^2, XY and level 1's products q0 .. q3; the
+    output is reduced by the caller."""
+    X, Y, Z = p
+    t0, t1, t2, txy = l0.reduce(l0.sqr(Y), l0.mul(Y, Z), l0.sqr(Z), l0.mul(X, Y))
+    t2b = b3(t2)
+    z8, y3s = _comb((8, t0)), _comb((1, t0), (1, t2b))
+    t0p = _comb((1, t0), (-3, t2b))
+    q = l1.mul(t2b, z8), l1.mul(t1, z8), l1.mul(t0p, y3s), l1.mul(t0p, txy)
+    return (t0, t1, t2, txy), q
+
+
+def _rcb_add(l0, l1, p, q, b3):
+    """The complete sum p + q over two levels, its output reduced."""
+    X1, Y1, Z1 = p
+    X2, Y2, Z2 = q
+    t0, t1, t2 = l0.mul(X1, X2), l0.mul(Y1, Y2), l0.mul(Z1, Z2)
+    m3 = l0.mul(_comb((1, X1), (1, Y1)), _comb((1, X2), (1, Y2)))
+    m4 = l0.mul(_comb((1, Y1), (1, Z1)), _comb((1, Y2), (1, Z2)))
+    m5 = l0.mul(_comb((1, X1), (1, Z1)), _comb((1, X2), (1, Z2)))
+    t0, t1, t2, t3, t4, ty = l0.reduce(
+        t0, t1, t2, _comb((1, m3), (-1, t0), (-1, t1)),
+        _comb((1, m4), (-1, t1), (-1, t2)), _comb((1, m5), (-1, t0), (-1, t2)))
+    t03, t2b, yb = _comb((3, t0)), b3(t2), b3(ty)
+    z3s, t1b = _comb((1, t1), (1, t2b)), _comb((1, t1), (-1, t2b))
+    p0, p1, p2 = l1.mul(t4, yb), l1.mul(t3, t1b), l1.mul(yb, t03)
+    p3, p4, p5 = l1.mul(t1b, z3s), l1.mul(t03, t3), l1.mul(z3s, t4)
+    l1.reduce(_comb((1, p1), (-1, p0)), _comb((1, p2), (1, p3)), _comb((1, p5), (1, p4)),
+              out=True)
+
+
+def _line(l2, a0, a1, a2, px, py, pz):
+    """The line's last level: l0 = a0 py, l1 = a1 pz, l2 = -(a2 px), six Fp
+    products by P's coordinates, to the output after the point."""
+    l2.reduce(l2.mul_fp(a0, py), l2.mul_fp(a1, pz), _comb((-1, l2.mul_fp(a2, px))), out=True)
 
 
 def k5_schedule(op: str):
     """-> (components per coordinate, the levels [(products, reductions)]):
     a product (A, B), each {slot: coefficient}; a reduction (destination,
     offset o, {product: d})."""
-    comps = 2 if op.startswith("g2") else 1
-    ins = [tuple({comps * i + c: 1} for c in range(comps)) for i in range(6)]
-    l0, l1 = _K5Level(comps), _K5Level(comps)
+    comps = 2 if op.startswith(("g2", "miller")) else 1
+    add = op.endswith("_add")
+    miller = op in K6_OPS
+    plan = _K5Plan(comps, 2 if add else 1, 3 if miller else 0, 3 if miller else 2)
+    l0, l1 = plan.levels[:2]
 
     def b3(x):                                  # [3b] x: 12 x (G1), 12 xi x (G2)
-        if comps == 1:
-            return _comb((12, x))
-        return _sum((12, x[0]), (-12, x[1])), _sum((12, x[0]), (12, x[1]))
+        return _comb((12, x)) if comps == 1 else _xi(x, 12)
 
-    if op.endswith("_add"):
-        X1, Y1, Z1, X2, Y2, Z2 = ins
-        t0, t1, t2 = l0.mul(X1, X2), l0.mul(Y1, Y2), l0.mul(Z1, Z2)
-        m3 = l0.mul(_comb((1, X1), (1, Y1)), _comb((1, X2), (1, Y2)))
-        m4 = l0.mul(_comb((1, Y1), (1, Z1)), _comb((1, Y2), (1, Z2)))
-        m5 = l0.mul(_comb((1, X1), (1, Z1)), _comb((1, X2), (1, Z2)))
-        t0, t1, t2, t3, t4, ty = l0.reduce(
-            t0, t1, t2, _comb((1, m3), (-1, t0), (-1, t1)),
-            _comb((1, m4), (-1, t1), (-1, t2)), _comb((1, m5), (-1, t0), (-1, t2)))
-        t03, t2b, yb = _comb((3, t0)), b3(t2), b3(ty)
-        z3s, t1b = _comb((1, t1), (1, t2b)), _comb((1, t1), (-1, t2b))
-        p0, p1, p2 = l1.mul(t4, yb), l1.mul(t3, t1b), l1.mul(yb, t03)
-        p3, p4, p5 = l1.mul(t1b, z3s), l1.mul(t03, t3), l1.mul(z3s, t4)
-        l1.reduce(_comb((1, p1), (-1, p0)), _comb((1, p2), (1, p3)), _comb((1, p5), (1, p4)),
-                  out=True)
+    if add:
+        _rcb_add(l0, l1, *plan.points, b3)
     else:
-        X, Y, Z = ins[:3]
-        t0, t1, t2, txy = l0.reduce(l0.sqr(Y), l0.mul(Y, Z), l0.sqr(Z), l0.mul(X, Y))
-        t2b = b3(t2)
-        z8, y3s = _comb((8, t0)), _comb((1, t0), (1, t2b))
-        t0p = _comb((1, t0), (-3, t2b))
-        q0, q1, q2, q3 = l1.mul(t2b, z8), l1.mul(t1, z8), l1.mul(t0p, y3s), l1.mul(t0p, txy)
+        (t0, t1, _, _), (q0, q1, q2, q3) = _rcb_double(l0, l1, plan.points[0], b3)
         l1.reduce(_comb((2, q3)), _comb((1, q0), (1, q2)), q1, out=True)
-    levels = [(lv.products, lv.reds) for lv in (l0, l1)]
+    if miller and add:
+        # The line through T and Q (pairing._add_step_plain): n = yq Z1 -
+        # Y1 zq, d = xq Z1 - X1 zq; l0 = xi d Z1 py, l1 = (n X1 - d Y1) pz,
+        # l2 = -(n Z1) px.
+        (X1, Y1, Z1), (xq, yq, zq) = plan.points
+        a, b = l0.mul(yq, Z1), l0.mul(xq, Z1)
+        c, d = l0.mul(Y1, zq), l0.mul(X1, zq)
+        n, d = l0.reduce(_comb((1, a), (-1, c)), _comb((1, b), (-1, d)))
+        dZ1, nX1, nZ1, dY1 = l1.mul(d, Z1), l1.mul(n, X1), l1.mul(n, Z1), l1.mul(d, Y1)
+        a0, a2, a1 = l1.reduce(_xi(dZ1), nZ1, _comb((1, nX1), (-1, dY1)))
+        _line(plan.levels[2], a0, a1, a2, *plan.fps)
+    elif miller:
+        # The tangent line at T (pairing._dbl_step_plain): l0 = 2 xi YZ^2
+        # py, l1 = (3 X^3 - 2 Y^2 Z) pz, l2 = -(3 X^2 Z) px.
+        X, Y, Z = plan.points[0]
+        (X2,) = l0.reduce(l0.sqr(X))
+        x3, yz2, y2z, x2z = l1.mul(X2, X), l1.mul(t1, Z), l1.mul(t0, Z), l1.mul(X2, Z)
+        a0, a2, x3, y2z = l1.reduce(_xi(yz2, 2), _comb((3, x2z)), x3, y2z)
+        _line(plan.levels[2], a0, _comb((3, x3), (-2, y2z)), a2, *plan.fps)
+    levels = plan.finish()
     _k5_check(levels)
     return comps, levels
 
@@ -672,12 +777,16 @@ def _k5_check(levels):
             for lin in (x, y):
                 if len(lin) > K5_LIN or any(not 0 < abs(c) < 1 << 16 for c in lin.values()):
                     raise AssertionError(f"K5 operand out of range: {lin}")
-        for _, off, sums in reds:
+                if any(not 0 <= s < 256 for s in lin):
+                    raise AssertionError(f"K5 slot out of range: {lin}")
+        for dest, off, sums in reds:
             pos = sum(d for d in sums.values() if d > 0)
             if len(sums) > K5_RED or any(abs(d) > 255 for d in sums.values()):
                 raise AssertionError(f"K5 reduction out of range: {sums}")
             if pos * (P - 1) ** 2 + off * P * P >= K5_REDC_BOUND:
                 raise AssertionError(f"K5 reduction above REDC's bound: {sums}")
+            if not 0 <= dest & ~K5_OUT < 256:
+                raise AssertionError(f"K5 destination out of range: {dest}")
 
 
 def k5_plan_words(op: str):
@@ -694,6 +803,27 @@ def k5_plan_words(op: str):
     return words
 
 
+def k5_counts(op: str) -> dict:
+    """The counts of op's struct in curve_plan.h: components, input Fp values
+    (fps of them P's), levels, products and reductions per level (three
+    levels; 0 past the last), slots, the widest level's products, the
+    units a point (warps) and the schedule's words."""
+    comps, levels = k5_schedule(op)
+    fps = 3 if op in K6_OPS else 0
+    inputs = (2 if op.endswith("_add") else 1) * 3 * comps + fps
+    last = len(levels) - 1
+    slots = max([inputs] + [d + 1 for i, (_, reds) in enumerate(levels) if i < last
+                            for d, _, _ in reds if not d & K5_OUT])
+    per = {}
+    for i in range(3):
+        products, reds = levels[i] if i < len(levels) else ([], [])
+        per[f"np{i}"], per[f"nr{i}"] = len(products), len(reds)
+    return {"comps": comps, "inputs": inputs, "fps": fps, "levels": len(levels), **per,
+            "slots": slots, "wide": max(len(p) for p, _ in levels),
+            "warps": max([inputs] + [max(len(p), len(r)) for p, r in levels]),
+            "words": len(k5_plan_words(op))}
+
+
 def k5_plan_header() -> str:
     """csrc/curve_op.cu's generated header (written at build time by
     ``_build``): per operation a struct of its counts, with its schedule's
@@ -703,24 +833,20 @@ def k5_plan_header() -> str:
              "#pragma once", "#include <cstdint>",
              f"#define LH_K5_LIN {K5_LIN}", f"#define LH_K5_RED {K5_RED}",
              f"#define LH_K5_INV_HI {K5_INV_HI.hex()}"]
-    for op in K5_OPS:
-        comps, ((p0, r0), (p1, r1)) = k5_schedule(op)
+    for op in K5_OPS + K6_OPS:
         words = k5_plan_words(op)
+        kernel = "K6" if op in K6_OPS else "K5"
         name = "".join(part.capitalize() for part in op.split("_"))
-        inputs = (2 if op.endswith("_add") else 1) * 3 * comps
-        counts = {"comps": comps, "inputs": inputs, "np0": len(p0), "nr0": len(r0),
-                  "np1": len(p1), "nr1": len(r1), "slots": max(inputs, len(r0)),
-                  "wide": max(len(p0), len(p1)),
-                  "warps": max(len(p0), len(r0), len(p1), len(r1)), "words": len(words)}
+        counts = ", ".join(f"{k} = {v}" for k, v in k5_counts(op).items())
         rows = ",\n".join("    " + ", ".join(f"0x{w:08x}u" for w in words[i:i + 6])
                           for i in range(0, len(words), 6))
-        lines += [f"struct K5{name} {{",
-                  "  static constexpr int " + ", ".join(f"{k} = {v}" for k, v in counts.items()) + ";",
+        lines += [f"struct {kernel}{name} {{",
+                  f"  static constexpr int {counts};",
                   "  static __device__ __forceinline__ const uint32_t* plan();",
                   "};",
-                  f"__device__ const uint32_t kK5Plan{name}[{len(words)}] = {{", rows, "};",
-                  f"__device__ __forceinline__ const uint32_t* K5{name}::plan() "
-                  f"{{ return kK5Plan{name}; }}"]
+                  f"__device__ const uint32_t k{kernel}Plan{name}[{len(words)}] = {{", rows, "};",
+                  f"__device__ __forceinline__ const uint32_t* {kernel}{name}::plan() "
+                  f"{{ return k{kernel}Plan{name}; }}"]
     return "\n".join(lines) + "\n"
 
 
@@ -746,6 +872,19 @@ def _curve_plain(group: str, op: str):
 
 PLAIN.update({f"{g.lower()}_{op}": _curve_plain(g, f"_{op}_plain")
               for g in ("G1", "G2") for op in ("add", "double")})
+
+
+def _miller_plain(step: str):
+    """K6's plain versions: pairing's step compositions on the plain
+    versions of the field kernels (pairing imports this module)."""
+    def plain(*xs):
+        from . import pairing
+        return getattr(pairing, step)(*xs)
+    return plain
+
+
+PLAIN.update(miller_dbl=_miller_plain("_dbl_step_plain"),
+             miller_add=_miller_plain("_add_step_plain"))
 
 # --------------------------------------------------------------------------
 # Wrappers
@@ -773,6 +912,9 @@ _KERNELS = {
     "g1_double": ("curve_op", "lh_g1_dbl", ("g1",)),
     "g2_add": ("curve_op", "lh_g2_add", ("g2", "g2")),
     "g2_double": ("curve_op", "lh_g2_dbl", ("g2",)),
+    # K6 (the same library) launches through _run_miller.
+    "miller_dbl": ("curve_op", "lh_miller_dbl", ("g2", "fp", "fp", "fp")),
+    "miller_add": ("curve_op", "lh_miller_add", ("g2", "g2", "fp", "fp", "fp")),
 }
 
 
@@ -1057,17 +1199,23 @@ def _k5_args(name, xs):
                                                                    _geometry_array(folded)]
 
 
-def _run_curve(name, xs):
-    kind = _KERNELS[name][2][0]
-    tail = _TAIL[kind]
+def _check_kinds(name, xs, noun):
+    """K5's and K6's checks: each operand an int32 tensor ending in its
+    kind's tail + (n,), all on one device -> that device."""
     dev = xs[0].device
-    for x in xs:
+    for x, kind in zip(xs, _KERNELS[name][2]):
+        tail = _TAIL[kind]
         if not isinstance(x, torch.Tensor) or x.dtype != torch.int32:
-            raise TypeError(f"{name}: points must be int32 tensors")
+            raise TypeError(f"{name}: {noun}s must be int32 tensors")
         if x.dim() <= len(tail) or tuple(x.shape[-len(tail) - 1:-1]) != tail:
-            raise ValueError(f"{name}: point shape {tuple(x.shape)} does not end in {tail} + (n,)")
+            raise ValueError(f"{name}: {noun} shape {tuple(x.shape)} does not end in {tail} + (n,)")
         if x.device != dev:
-            raise ValueError(f"{name}: points on {dev} and {x.device}")
+            raise ValueError(f"{name}: {noun}s on {dev} and {x.device}")
+    return dev
+
+
+def _run_curve(name, xs):
+    dev = _check_kinds(name, xs, "point")
     if dev.type == "cpu":
         return PLAIN[name](*xs)
     if dev.type != "cuda":
@@ -1098,9 +1246,87 @@ def g2_double(p):
     return _run_curve("g2_double", (p,))
 
 
+# --- K6 ---------------------------------------------------------------------
+#
+# K6's wrapper follows K5's. Each of P's coordinates (..., 12, n) is viewed
+# with a G2 point's tail, its coordinate and component axes of size 1
+# (stride 0), so that one geometry (K5's six strides) addresses the point
+# operands and P's coordinates alike, strided (p_proj.select(-3, i)) or
+# broadcast in place. The outputs are two dense tensors of the result
+# point's shape: the point, and the line (l0, l1, l2) in the layout K3's
+# fp12_mul_line reads.
+
+_K6_GEOMETRY: dict = {}      # (name, (shape, strides) per operand) -> launch geometry
+
+
+def _k6_geometry(name, xs):
+    """(output shape, rows, n, geometry array or None) of one K6 launch;
+    None where the operands' lead axes fold into no two levels."""
+    views = [x if kind == "g2" else x[..., None, None, :, :]
+             for x, kind in zip(xs, _KERNELS[name][2])]
+    shape = views[0].shape
+    for v in views[1:]:
+        shape = _broadcast_shape(shape, v.shape)
+    n = shape[-1]
+    rows = math.prod(shape[:-4]) if n else 0
+    folded = _geometry(shape, views, 4)
+    return tuple(shape), rows, n, None if folded is None else _geometry_array(folded)
+
+
+def _k6_args(name, xs):
+    """The outputs (point, line) of one K6 launch and the C entry point's
+    arguments but the stream: both outputs' and the operands' data pointers,
+    rows, n and the geometry (always given: r0, then per operand s1, s0 and
+    the coordinate, component, limb and column strides). Also returns the
+    operands the pointers refer to, which the caller keeps alive over the
+    launch. The geometry is kept per operand shapes and strides: a path
+    gives K6 a handful of them, each thousands of times."""
+    key = (name,) + tuple((x.shape, x.stride()) for x in xs)
+    geo = _K6_GEOMETRY.get(key)
+    if geo is None:
+        geo = _k6_geometry(name, xs)
+        if geo[3] is None:                      # copied dense over the lead axes
+            lead = geo[0][:-4]
+            xs = [x.expand(lead + x.shape[-4 if kind == "g2" else -2:]).contiguous()
+                  for x, kind in zip(xs, _KERNELS[name][2])]
+            geo = _k6_geometry(name, xs)
+        elif len(_K6_GEOMETRY) < 256:
+            _K6_GEOMETRY[key] = geo
+    shape, rows, n, geom = geo
+    out = torch.empty(shape, dtype=torch.int32, device=xs[0].device)
+    line = torch.empty(shape, dtype=torch.int32, device=xs[0].device)
+    args = [out.data_ptr(), line.data_ptr()] + [x.data_ptr() for x in xs] + [rows, n, geom]
+    return (out, line), xs, args
+
+
+def _run_miller(name, xs):
+    dev = _check_kinds(name, xs, "operand")
+    if dev.type == "cpu":
+        return PLAIN[name](*xs)
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {dev}")
+    outs, _inputs, args = _k6_args(name, xs)
+    if outs[0].numel():
+        _call_kernel(name, args, dev)
+    return outs
+
+
+def miller_dbl(t, px, py, pz):
+    """K6: the Miller loop's doubling step, T (..., 3, 2, 12, n) and P's
+    coordinates (..., 12, n), broadcast -> (2T, the tangent line at T
+    evaluated at P, (..., 3, 2, 12, n): l0, l1, l2)."""
+    return _run_miller("miller_dbl", (t, px, py, pz))
+
+
+def miller_add(t, q, px, py, pz):
+    """K6: the addition step -> (T + Q, the line through T and Q at P)."""
+    return _run_miller("miller_add", (t, q, px, py, pz))
+
+
 WRAPPERS = {
     "fp_mul": fp_mul, "fp_sqr": fp_sqr, "fp2_mul": fp2_mul, "fp2_sqr": fp2_sqr,
     "fp12_sqr": fp12_sqr, "fp12_mul": fp12_mul, "fp12_line": fp12_mul_line,
     "fp_add": fp_add, "fp_sub": fp_sub, "fp_neg": fp_neg, "fp_mul_small": fp_mul_small,
     "g1_add": g1_add, "g1_double": g1_double, "g2_add": g2_add, "g2_double": g2_double,
+    "miller_dbl": miller_dbl, "miller_add": miller_add,
 }

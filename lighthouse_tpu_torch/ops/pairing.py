@@ -8,14 +8,18 @@ x-chain final exponentiation. Pairs ride the minor axis: P (..., 3, 12, n),
 Q (..., 3, 2, 12, n); the per-pair Miller values are multiplied together
 along the minor axis into ONE final exponentiation.
 
-Every Miller step is one K3 square and one K3 sparse-line product; the
-final exponentiation is K3 squares and products.
+Every Miller step is one K6 launch (the G2 doubling or addition with its
+line evaluated at P) and one K3 sparse-line product, a doubling step also
+one K3 square; the final exponentiation is K3 squares and products. K6's
+plain versions (``_dbl_step_plain`` / ``_add_step_plain``) are the step
+formulas on the plain versions of the field kernels, which the CPU takes.
 """
 
 import torch
 
 from ..crypto.bls.constants import BLS_X_ABS, P, R
 from . import curves as cv
+from . import fused
 from . import limbs as lb
 from . import tower as tw
 
@@ -39,57 +43,83 @@ if _E_EXP * (_X + P) * (_X * _X + P * P - 1) + 1 != (P**4 - P**2 + 1) // R:
     raise AssertionError("final exponentiation chain does not match the hard part")
 
 
-def _dbl_step(t, px, py, pz):
-    """2T and the line through T tangent at T, evaluated at P."""
+def _dbl_step_plain(t, px, py, pz):
+    """K6's plain version of the doubling step (ops/bm/pairing.py:24): 2T
+    and the line through T tangent at T, evaluated at P, stacked (l0, l1,
+    l2) -> (..., 3, 2, 12, n), on the plain versions of the field kernels."""
+    f, g = cv.FP2_PLAIN, cv.FP_PLAIN
     X, Y, Z = cv.G2.coords(t)
-    m1 = tw.fp2_mul(torch.stack([Y, Y, Z, X, X], dim=-4),
-                    torch.stack([Y, Z, Z, Y, X], dim=-4))
-    Y2, YZ, Z2, XY, X2 = (m1.select(-4, i) for i in range(5))
+    Y2, YZ, Z2, XY, X2 = f.mul_many([Y, Y, Z, X, X], [Y, Z, Z, Y, X])
 
-    t2b = cv._b3_g2(Z2)
-    z8 = lb.mul_small(Y2, 8)
-    y3s = lb.add(Y2, t2b)
-    t0p = lb.sub(Y2, lb.mul_small(t2b, 3))
+    t2b = cv._b3_g2(Z2, 3, f)
+    z8 = f.mul_small(Y2, 8)
+    y3s = f.add(Y2, t2b)
+    t0p = f.sub(Y2, f.mul_small(t2b, 3))
 
-    m2 = tw.fp2_mul(torch.stack([t2b, YZ, t0p, t0p, X2, YZ, Y2, X2], dim=-4),
-                    torch.stack([z8, z8, y3s, XY, X, Z, Z, Z], dim=-4))
-    q0, q1, q2, q3, X3c, YZ2, Y2Z, X2Z = (m2.select(-4, i) for i in range(8))
+    q0, q1, q2, q3, X3c, YZ2, Y2Z, X2Z = f.mul_many(
+        [t2b, YZ, t0p, t0p, X2, YZ, Y2, X2], [z8, z8, y3s, XY, X, Z, Z, Z])
 
-    t_next = cv.G2.pack(lb.add(q3, q3), lb.add(q0, q2), q1)
+    t_next = cv.G2.pack(f.add(q3, q3), f.add(q0, q2), q1)
 
-    l1_raw = lb.sub(lb.mul_small(X3c, 3), lb.add(Y2Z, Y2Z))
-    two_yz2 = lb.add(YZ2, YZ2)
-    scaled = tw.fp2_mul_fp(
-        torch.stack([tw.fp2_mul_by_xi(two_yz2), lb.mul_small(X2Z, 3), l1_raw], dim=-4),
-        torch.stack([py, px, pz], dim=-3))
-    l0 = scaled.select(-4, 0)
-    l2 = lb.neg(scaled.select(-4, 1))
-    l1 = scaled.select(-4, 2)
-    return t_next, (l0, l1, l2)
+    l1_raw = f.sub(f.mul_small(X3c, 3), f.add(Y2Z, Y2Z))
+    two_yz2 = f.add(YZ2, YZ2)
+    l0, l2, l1 = _times_p(g, [_mul_by_xi(f, two_yz2), f.mul_small(X2Z, 3), l1_raw],
+                          [py, px, pz])
+    return _with_line(t_next, l0, l1, g.neg(l2))
+
+
+def _add_step_plain(t, q, px, py, pz):
+    """K6's plain version of the addition step (ops/bm/pairing.py:63): T + Q
+    and the line through T and Q, evaluated at P, stacked as in
+    _dbl_step_plain."""
+    f, g = cv.FP2_PLAIN, cv.FP_PLAIN
+    X1, Y1, Z1 = cv.G2.coords(t)
+    xq, yq, zq = cv.G2.coords(q)
+    a, b, c, d = f.mul_many([yq, xq, Y1, X1], [Z1, Z1, zq, zq])
+    n, d = f.sub(a, c), f.sub(b, d)
+    dZ1, nX1, nZ1, dY1 = f.mul_many([d, n, n, d], [Z1, X1, Z1, Y1])
+    l0, l2, l1 = _times_p(g, [_mul_by_xi(f, dZ1), nZ1, f.sub(nX1, dY1)], [py, px, pz])
+    return _with_line(cv.G2._add_plain(t, q), l0, l1, g.neg(l2))
+
+
+def _with_line(t_next, l0, l1, l2):
+    """(the point, the line stacked), both of the shape K6 writes: the
+    point broadcast over P's leading axes as the line is."""
+    line = torch.stack(torch.broadcast_tensors(l0, l1, l2), dim=-4)
+    return t_next.expand(line.shape).contiguous(), line
+
+
+def _mul_by_xi(f, a):
+    a0, a1 = a[..., 0, :, :], a[..., 1, :, :]
+    return torch.stack([f.sub(a0, a1), f.add(a0, a1)], dim=-3)
+
+
+def _times_p(g, xs, ps):
+    """Fp2 values times P's coordinates, one call of g's Fp product."""
+    out = g.mul(torch.stack(torch.broadcast_tensors(*xs), dim=-4),
+                torch.stack(torch.broadcast_tensors(*ps), dim=-3).unsqueeze(-3))
+    return [out.select(-4, i) for i in range(len(xs))]
+
+
+def _dbl_step(t, px, py, pz):
+    """2T and the line through T tangent at T, evaluated at P, (..., 3, 2,
+    12, n): one K6 launch on the card (fused.miller_dbl)."""
+    return fused.miller_dbl(t, px, py, pz)
 
 
 def _add_step(t, q, px, py, pz):
-    """T + Q and the line through T and Q, evaluated at P."""
-    X1, Y1, Z1 = cv.G2.coords(t)
-    xq, yq, zq = cv.G2.coords(q)
-    m1 = tw.fp2_mul(torch.stack([yq, xq, Y1, X1], dim=-4),
-                    torch.stack([Z1, Z1, zq, zq], dim=-4))
-    n = lb.sub(m1.select(-4, 0), m1.select(-4, 2))
-    d = lb.sub(m1.select(-4, 1), m1.select(-4, 3))
-    m2 = tw.fp2_mul(torch.stack([d, n, n, d], dim=-4),
-                    torch.stack([Z1, X1, Z1, Y1], dim=-4))
-    dZ1, nX1, nZ1, dY1 = (m2.select(-4, i) for i in range(4))
-    scaled = tw.fp2_mul_fp(
-        torch.stack([tw.fp2_mul_by_xi(dZ1), nZ1, lb.sub(nX1, dY1)], dim=-4),
-        torch.stack([py, px, pz], dim=-3))
-    l0 = scaled.select(-4, 0)
-    l2 = lb.neg(scaled.select(-4, 1))
-    l1 = scaled.select(-4, 2)
-    return cv.G2.add(t, q), (l0, l1, l2)
+    """T + Q and the line through T and Q, evaluated at P: one K6 launch."""
+    return fused.miller_add(t, q, px, py, pz)
 
 
 def miller_loop_proj(p_proj, q_proj):
     """p (..., 3, 12, n), q (..., 3, 2, 12, n) -> f (..., 2, 3, 2, 12, n)."""
+    return tw.fp12_conj(_miller_loop(p_proj, q_proj))
+
+
+def _miller_loop(p_proj, q_proj):
+    """miller_loop_proj before its conjugation (x < 0), which a product of
+    Miller values takes once, after the product."""
     px, py, pz = p_proj.select(-3, 0), p_proj.select(-3, 1), p_proj.select(-3, 2)
     one = tw.consts(p_proj.device).fp12_one
     acc = one.expand(px.shape[:-2] + one.shape[:-1] + px.shape[-1:]).contiguous()
@@ -97,17 +127,17 @@ def miller_loop_proj(p_proj, q_proj):
 
     def dbl(acc, t):
         acc = tw.fp12_sqr(acc)
-        t, (l0, l1, l2) = _dbl_step(t, px, py, pz)
-        return tw.fp12_mul_sparse_line(acc, l0, l1, l2), t
+        t, line = _dbl_step(t, px, py, pz)
+        return tw.fp12_mul_line(acc, line), t
 
     for run in _DBL_RUNS:
         for _ in range(run):
             acc, t = dbl(acc, t)
-        t, (l0, l1, l2) = _add_step(t, q_proj, px, py, pz)
-        acc = tw.fp12_mul_sparse_line(acc, l0, l1, l2)
+        t, line = _add_step(t, q_proj, px, py, pz)
+        acc = tw.fp12_mul_line(acc, line)
     for _ in range(_TAIL_DBLS):
         acc, t = dbl(acc, t)
-    return tw.fp12_conj(acc)
+    return acc
 
 
 def _fp12_pow_abs(f, k: int):
@@ -136,11 +166,13 @@ def multi_pairing_product_proj(p_proj, q_proj, mask):
     q (3, 2, 12, n), mask (n,) -> the final-exponentiated Fp12 with a
     trailing batch axis of 1. (Returns a value, not a verdict: see
     multi_pairing_check.)"""
-    f = miller_loop_proj(p_proj, q_proj)
+    f = _miller_loop(p_proj, q_proj)
     one = tw.consts(f.device).fp12_one
     f = torch.where(mask, f, one)
     prod = lb.tree_reduce_minor(f, tw.fp12_mul, one, f.shape[-1])
-    return final_exponentiation(prod)
+    # conj is a field automorphism (the p^6 Frobenius) and fixes 1: the
+    # conjugate of the product is the product of miller_loop_proj's values.
+    return final_exponentiation(tw.fp12_conj(prod))
 
 
 def multi_pairing_check(p_proj, q_proj, mask):

@@ -204,10 +204,15 @@ def fp12_sqr(a):
     return fused.fp12_sqr(a.contiguous())
 
 
+def fp12_mul_line(a, line):
+    """a * (l0 + l1 w^3 + l2 w^5), line = stack(l0, l1, l2) (..., 3, 2, 12,
+    n), as K6 writes it."""
+    return fused.fp12_mul_line(a.contiguous(), line.contiguous())
+
+
 def fp12_mul_sparse_line(a, l0, l1, l2):
     """a * (l0 + l1 w^3 + l2 w^5) (ops/bm/tower.fp12_mul_sparse_line)."""
-    line = torch.stack(torch.broadcast_tensors(l0, l1, l2), dim=-4)
-    return fused.fp12_mul_line(a.contiguous(), line.contiguous())
+    return fp12_mul_line(a, torch.stack(torch.broadcast_tensors(l0, l1, l2), dim=-4))
 
 
 def fp12_conj(a):

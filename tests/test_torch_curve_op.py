@@ -392,8 +392,9 @@ def test_header_counts_and_words():
         counts = dict(re.findall(r"(\w+) = (\d+)", block[:block.index("};")]))
         inputs = (2 if op.endswith("_add") else 1) * 3 * comps
         assert {k: int(v) for k, v in counts.items()} == {
-            "comps": comps, "inputs": inputs, "np0": len(p0), "nr0": len(r0), "np1": len(p1),
-            "nr1": len(r1), "slots": max(inputs, len(r0)), "wide": max(len(p0), len(p1)),
+            "comps": comps, "inputs": inputs, "fps": 0, "levels": 2, "np0": len(p0),
+            "nr0": len(r0), "np1": len(p1), "nr1": len(r1), "np2": 0, "nr2": 0,
+            "slots": max(inputs, len(r0)), "wide": max(len(p0), len(p1)),
             "warps": max(len(p0), len(r0), len(p1), len(r1)), "words": len(words)}
         assert int(counts["inputs"]) <= int(counts["warps"])    # one input Fp per unit
         body = block[block.index(f"kK5Plan{name}["):]
@@ -440,27 +441,31 @@ def test_source_constants():
 
 
 def test_source_layouts():
-    """The layouts the launcher runs, (points a block, lanes a unit), fit
-    their data: a pair's product column holds the product and sub-lane 1's
-    18-limb partial, its reduction scratch 24 64-bit sums and two 12-limb
-    partials; the pad limb puts a warp's units on distinct banks; shared
-    memory a block stays within the card's 227 KB for every operation."""
+    """The layouts the launcher runs, (points a block, lanes a unit): pairs
+    at 4 points a block, one lane at kLaneP (32 points a block where that
+    stays within kLaneThreads threads, else 16: K6). They fit their data: a
+    pair's product column holds the product and sub-lane 1's 18-limb
+    partial, its reduction scratch 24 64-bit sums and two 12-limb partials;
+    the pad limb puts a warp's units on distinct banks; shared memory a
+    block stays within the card's 227 KB for every operation, K6's too."""
     src = (CSRC / "curve_op.cu").read_text()
     shape = src[src.index("struct Shape {"):]
     shape = shape[:shape.index("};")]
     fp = int(re.search(r"fp = (\d+) \* P;", shape).group(1))
     w1, w2 = map(int, re.search(r"wide = \(L == 1 \? (\d+) : (\d+)\) \* P;", shape).groups())
     rs = int(re.search(r"rs = L == 1 \? 0 : (\d+) \* P;", shape).group(1))
-    layouts = sorted({(int(a), int(b)) for a, b in re.findall(r"run<K, (\d+), (\d+)>", src)})
-    assert layouts == [(4, 2), (32, 1)]
+    assert re.findall(r"run<K, (\w+(?:<K>)?), (\d+)>", src) == [("4", "2"), ("kLaneP<K>", "1")]
+    threads = int(re.search(r"kLaneThreads = (\d+);", src).group(1))
+    wide_p, narrow_p = map(int, re.search(
+        r"kLaneP = K::warps \* 32 <= kLaneThreads \? (\d+) : (\d+);", src).groups())
     assert fp >= 12 and w1 >= 24 and w2 >= 24 + 18 and rs >= 2 * 24 + 2 * 12
-    header = fused.k5_plan_header()
-    for op in fused.K5_OPS:
-        name = "".join(part.capitalize() for part in op.split("_"))
-        block = header[header.index(f"struct K5{name} {{"):]
-        k = {a: int(b) for a, b in re.findall(r"(\w+) = (\d+)", block[:block.index("};")])}
-        for pts, lanes in layouts:
+    for op in fused.K5_OPS + fused.K6_OPS:
+        k = fused.k5_counts(op)
+        lane_p = wide_p if k["warps"] * 32 <= threads else narrow_p
+        assert lane_p == (32 if op in fused.K5_OPS else 16)
+        for pts, lanes in ((4, 2), (lane_p, 1)):
             units = 32 // (pts * lanes)
+            assert -(-k["warps"] // units) * 32 <= 1024, (op, pts, lanes)
             wide = (w1 if lanes == 1 else w2) * pts
             assert len({u * wide % 32 for u in range(units)}) == units, (op, pts, lanes)
             words = ((k["words"] + 3) // 4 * 4 + k["slots"] * fp * pts + k["wide"] * wide
