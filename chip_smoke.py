@@ -24,7 +24,11 @@ Phases, each printing one JSON line:
             shapes, K2_SHAPES, K4_SHAPES, K5_SHAPES, K6_SHAPES: both K6
             modes at n = 2, 65, 4097 and 16385 pairs), each beside floor_ms,
             an empty kernel on its library's grid timed the same way (also
-            at every n).
+            at every n). K7 (the powers) is held at K7_SHAPES instead of
+            the n above, at each exponent of K7_EXPONENTS (its path's and
+            0, 1, 15, 16, 17), its first columns 0, 1 and p - 1 (Fp2 also
+            (1, 0) and (0, 1)), and timed at its path's exponent beside an
+            empty kernel on its own grid.
    wrapper  the host's cost of the parts of one K2 wrapper call (checks,
             output allocation, library lookup, device context, stream,
             the ctypes launch), of one K4 call (checks, launch
@@ -41,7 +45,8 @@ Phases, each printing one JSON line:
             replays the bucket's CUDA graphs: the launch counts are reset
             just before its first call (which runs each stage eagerly once
             and captures it) and read just after, and every kernel must have
-            been launched (but OFF_PATH's, which no path launches since K6),
+            been launched (but OFF_PATH's, which no path launches since K6
+            and K7),
             and none of OFF_PAIRING at the pairing's m + 1 = 65 pairs; a warm
             call must launch nothing from Python. Then
             the eager run split into its stages for their wall times, and
@@ -53,7 +58,8 @@ Phases, each printing one JSON line:
             every kernel against its plain version again, bit for bit, at
             each operand shape the headline verify gave it (stacked rows of
             Fp2 products, K3 at n = m + 1 pairs and at n = 1; K4 and K5 at
-            each operand layout, strides, broadcasts and k included); then
+            each operand layout, strides, broadcasts and k included; K7 at
+            each shape and exponent); then
             the K1, K2, K4 and K5 entries timed at the three shapes with
             the most launches in that record (k1_shapes, k2_shapes,
             k4_shapes, k5_shapes), with floor_ms.
@@ -143,7 +149,8 @@ Phases, each printing one JSON line:
 8. profile  torch.profiler over one call of each unit (fp_add, fp_sub,
             fp_neg and fp_mul_small on equal shapes, fp_add broadcast and
             strided, G1/G2 add and double, the Miller doubling and addition
-            steps: one CUDA kernel each, or the phase fails), over each
+            steps, the Fp inverse and the Fp2 sqrt-ratio power: one CUDA
+            kernel each, or the phase fails), over each
             device stage of the headline and by_root verifies (a stage's
             kernels are the nodes a CUDA graph of it would hold), then over
             one warm eager headline verify and one warm by_root KZG verify:
@@ -271,6 +278,7 @@ K4_SHAPES = ((2, 12, 64), (2, 12, 65), (12, 4096), (2, 12, 4096), (6, 12, 4096))
 # a unit from 1025).
 K5 = ("g1_add", "g1_double", "g2_add", "g2_double")
 K6 = ("miller_dbl", "miller_add")
+K7 = ("fp_pow", "fp2_pow")
 K5_SHAPES = {"g1_add": ((3, 12, 16), (3, 12, 512), (3, 12, 4096), (2, 3, 12, 4096)),
              "g1_double": ((3, 12, 16), (3, 12, 512), (3, 12, 4096)),
              "g2_add": ((3, 2, 12, 64), (3, 2, 12, 65), (3, 2, 12, 4096), (3, 2, 12, 16384)),
@@ -289,7 +297,16 @@ FLOORED = {"fp_mul": ("lh_fp_empty", K1_SHAPES, "k1"),
            "curve_op": ("lh_curve_empty", {**K5_SHAPES, **K6_SHAPES}, "k5")}
 # Kernels timed against an empty kernel of their own grid, not their
 # library's: K6 against one on the doubling step's.
-FLOOR_ENTRY = {name: "lh_miller_empty" for name in K6}
+FLOOR_ENTRY = {**{name: "lh_miller_empty" for name in K6},
+               "fp_pow": "lh_fp_pow_empty", "fp2_pow": "lh_fp2_pow_empty"}
+# K7's shapes: the final exponentiation's inverse (12, 1); the sqrt-ratio
+# power at the paths' m = 1 (single verifications), 64 (the headline) and
+# 256 (the distinct-message batch) messages, with h2g2's two rows; and 4096
+# elements. Its exponents: each path's first (timed), then the short ones.
+# K7_MAIN is each mode's headline shape, its summary's row.
+K7_SHAPES = {"fp_pow": ((12, 1), (12, 4096)),
+             "fp2_pow": ((2, 2, 12, 1), (2, 2, 12, 64), (2, 2, 12, 256), (2, 12, 4096))}
+K7_MAIN = {"fp_pow": (12, 1), "fp2_pow": (2, 2, 12, 64)}
 HEADLINE = dict(n_sets=4096, keys=4, distinct=64)
 # KZG batches, one RPC response each: BlobsByRoot for one block
 # (MAX_BLOBS_PER_BLOCK = 6) and BlobsByRange for one epoch of full blocks
@@ -302,12 +319,14 @@ KZG_ELEMENTS = 4096
 # exponentiation's Fp2 and Fp12 products (no K5 on G2: the Miller steps hold
 # the G2 doubling and addition).
 K4 = ("fp_add", "fp_sub", "fp_neg", "fp_mul_small")
-# Kernels no path launches since K6 folded the Miller steps' small
-# multiples into its schedule: held against their plain versions in the
+# Kernels no path launches: fp_mul_small since K6 folded the Miller steps'
+# small multiples into its schedule, fp_sqr since K7 took the Fp inverse's
+# squares (its only path caller). Held against their plain versions in the
 # kernels phase (every shape, n = 65 included), required on no path.
-OFF_PATH = ("fp_mul_small",)
+OFF_PATH = ("fp_mul_small", "fp_sqr")
 KZG_REQUIRED = (("fp_mul", "fp2_mul", "fp12_sqr", "fp12_mul", "fp12_line", "fp_add", "fp_sub",
-                 "fp_neg", "g1_add", "g1_double") + K6)
+                 "fp_neg", "g1_add", "g1_double") + K6 + ("fp_pow",))
+
 # Kernels K6 took off the pairing's width (n = m + 1 pairs; KZG's 2): none
 # of them may launch at that n.
 OFF_PAIRING = ("fp_mul", "fp_sqr", "fp2_mul", "fp2_sqr") + K4 + ("g2_add", "g2_double")
@@ -358,6 +377,36 @@ WORK = {
     "miller_dbl": (42 * FP_PROD + 30 * REDC, 288 + 144 + 576),
     "miller_add": (66 * FP_PROD + 34 * REDC, 2 * 288 + 144 + 576),
 }
+
+
+def pow_work(name, exponent):
+    """K7's (multiply-adds, bytes) per element for one exponent, as its
+    chain needs them: below 16 a square a further bit and a product a set
+    one (the plain loop's); from 16 the table's a^2 (a square) and 13
+    products, four squares a further window and a product a nonzero digit
+    but the first window's low one (a table entry). Fp2 runs its exponent
+    split at p (fused.fp2_pow_digits): a window's two digits share its
+    squares. An Fp square is 78 + 144 multiply-adds, a product 144 + 144;
+    an Fp2 square two Fp products and two reductions, a product three and
+    two. One element read and one written (the digits, shared by every
+    element, not counted)."""
+    from lighthouse_tpu_torch.ops import fused
+
+    if exponent == 0:
+        sqrs = muls = 0
+    elif exponent < 16:
+        bits = bin(exponent)[3:]
+        sqrs, muls = len(bits), bits.count("1")
+    else:
+        digits = (fused.pow_digits if name == "fp_pow" else fused.fp2_pow_digits)(exponent)
+        nibbles = [d & 15 for d in digits[1:]] + [d >> 4 for d in digits]
+        sqrs = 1 + 4 * (len(digits) - 1)
+        muls = 13 + sum(1 for k in nibbles if k)
+    if name == "fp_pow":
+        return sqrs * (FP_SQR + REDC) + muls * (FP_PROD + REDC), 2 * 48
+    return sqrs * (2 * FP_PROD + 2 * REDC) + muls * (3 * FP_PROD + 2 * REDC), 2 * 96
+
+
 SOURCES = {
     "fp_mul": ("lighthouse_tpu_torch/ops/csrc/fp_mul.cu",
                "lighthouse_tpu/ops/fused.py:279 _fwd_call + :319 _inv_call"),
@@ -378,6 +427,13 @@ SOURCES = {
     "miller_add": ("lighthouse_tpu_torch/ops/csrc/curve_op.cu",
                    "none (no pallas_call): lighthouse_tpu/ops/bm/pairing.py:63 _add_step, "
                    "fused by XLA"),
+    # K7, one source, per kernel:
+    "fp_pow": ("lighthouse_tpu_torch/ops/csrc/fp_pow.cu",
+               "none (no pallas_call): lighthouse_tpu/ops/bm/limbs.py:433 pow_fixed, its "
+               "lax.scan at :462 fused by XLA"),
+    "fp2_pow": ("lighthouse_tpu_torch/ops/csrc/fp_pow.cu",
+                "none (no pallas_call): lighthouse_tpu/ops/bm/tower.py:165 fp2_pow_fixed, its "
+                "lax.scan at :193 fused by XLA"),
 }
 
 
@@ -551,6 +607,8 @@ def _operands(name, shapes, gen):
             x[..., :len(pt)] = _point_limbs(pt, "G2")
         return xs + [p.select(-3, i) for i in range(3)]
     xs = [_rand_fp(tuple(shape), gen) for shape in shapes]
+    if name in K7:
+        _pow_edges(name, xs[0])
     if name in K4:
         pairs = _k4_edge_pairs()[:shapes[0][-1]]
         for x, vals in zip(xs, zip(*pairs)):
@@ -563,11 +621,25 @@ def _operands(name, shapes, gen):
     return xs
 
 
+def _pow_edges(name, x):
+    """K7's edge values in x's first columns, as Montgomery forms: p - 1,
+    0 and 1; an Fp2 (p - 1, p - 1), (0, 0), (1, 0) and (0, 1)."""
+    from lighthouse_tpu_torch.ops import limbs as lb
+
+    cols = (((lb.P - 1, 0, 1),) if name == "fp_pow"
+            else ((lb.P - 1, 0, 1, 0), (lb.P - 1, 0, 0, 1)))
+    for c, vals in enumerate(cols):
+        k = min(len(vals), x.shape[-1])
+        part = x if name == "fp_pow" else x[..., c, :, :]
+        part[..., :k] = lb.ints_to_limbs(vals[:k], x.device)
+
+
 def _call(name, xs, k=K4_TIMED_K, plain=False):
+    """Kernel `name` on xs; k is mul_small's multiple or K7's exponent."""
     from lighthouse_tpu_torch.ops import fused
 
     fn = (fused.PLAIN if plain else fused.WRAPPERS)[name]
-    return fn(*xs, k) if name == "fp_mul_small" else fn(*xs)
+    return fn(*xs, k) if name in ("fp_mul_small",) + K7 else fn(*xs)
 
 
 def _check_equal(name, what, xs, k=K4_TIMED_K):
@@ -624,7 +696,7 @@ def _floor(lib, shape, kind, name=None):
 
     from lighthouse_tpu_torch.ops import _build, fused
 
-    fn = getattr(_build.library(lib), FLOOR_ENTRY.get(name, FLOORED[lib][0]), None)
+    fn = getattr(_build.library(lib), FLOOR_ENTRY.get(name) or FLOORED[lib][0], None)
     if fn is None:
         return None, None
     fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p]
@@ -656,6 +728,42 @@ def _timed(name, shapes, gen):
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
+def _pow_exponents(name):
+    """K7_EXPONENTS for mode `name`: its path's exponent first (timed),
+    then 0, 1, 15, 16 and 17."""
+    from lighthouse_tpu_torch.crypto.bls.constants import P
+    from lighthouse_tpu_torch.ops import tower
+
+    path = P - 2 if name == "fp_pow" else tower._SQRT_RATIO_EXP
+    return (path, 0, 1, 15, 16, 17)
+
+
+def _timed_pow(name, shape, gen):
+    """K7 mode `name` at one operand shape: bit for bit with its plain
+    version at each exponent of _pow_exponents (edge values in the first
+    columns), then timed at the path's exponent beside an empty kernel on
+    its grid, with its bound from pow_work."""
+    from lighthouse_tpu_torch.ops import fused
+
+    exps = _pow_exponents(name)
+    (x,) = _operands(name, [shape], gen)
+    err = max(_check_equal(name, f"{shape} e={e}", [x], e) for e in exps)
+    e = exps[0]
+    elems = math.prod(shape) // math.prod(fused._TAIL[fused._KERNELS[name][2][0]])
+    reps = 20
+    call_ms = cuda_ms(lambda: _call(name, [x], e), reps)
+    ms = graph_ms(lambda: _call(name, [x], e), reps)
+    plain_ms = cuda_ms(lambda: _call(name, [x], e, plain=True), 1)
+    mads, nbytes = pow_work(name, e)
+    t_ops, t_bytes = elems * mads / INT32_MAD_PER_S * 1e3, elems * nbytes / HBM_BYTES_PER_S * 1e3
+    floor_ms, floor_call_ms = _floor("fp_pow", shape, fused._KERNELS[name][2][0], name)
+    return {"mismatches": 0, "max_abs_err": err, "exponents": len(exps),
+            "windows": len(fused._k7_digits(name, e, x.device)), "ms": ms, "call_ms": call_ms,
+            "plain_ms": plain_ms, "floor_ms": floor_ms, "floor_call_ms": floor_call_ms,
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
 def _entries(lib):
     """(kernel name, operand kinds) of each entry point of library `lib`."""
     from lighthouse_tpu_torch.ops import fused
@@ -683,7 +791,14 @@ def phase_kernels():
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(SEED)
     results = {}
+    for name in K7:
+        per = {str(shape): _timed_pow(name, shape, gen) for shape in K7_SHAPES[name]}
+        results[name] = per
+        emit({"phase": "kernels", "kernel": name, "tolerance": 0, "by_shape": per,
+              "library_ms": None})
     for name, (lib, _, kinds) in fused._KERNELS.items():
+        if name in K7:
+            continue
         per_n = {n: _timed(name, [fused._TAIL[k] + (n,) for k in kinds], gen) for n in NS}
         if lib in FLOORED:
             for n, row in per_n.items():
@@ -806,7 +921,7 @@ def _new_shapes(shapes, seen):
 def phase_main_path_shapes(shapes, phase="main_path_shapes", required=None):
     """Every kernel against its plain version at each operand shape a path
     gave it (stacked leading rows included; K4, K5 and K6 at each operand
-    layout, its strides, broadcasts and k), tolerance 0. Each kernel in
+    layout, its strides, broadcasts and k; K7 at each exponent), tolerance 0. Each kernel in
     `required` (default: all but OFF_PATH) must have a recorded shape; the
     others are held at theirs, if any."""
     from lighthouse_tpu_torch.ops import fused
@@ -820,7 +935,13 @@ def phase_main_path_shapes(shapes, phase="main_path_shapes", required=None):
             if name in required:
                 raise AssertionError(f"no {phase} recorded for {name}")
             continue
-        if name in K4 + K5 + K6:
+        if name in K7:
+            errs[name] = max(_check_equal(name, f"{shape} e={e}",
+                                          _operands(name, [shape], gen), e)
+                             for shape, e in sorted(shapes[name]))
+            recorded = sorted({shape for shape, _ in shapes[name]})
+            extra = {"exponents": len({e for _, e in shapes[name]})}
+        elif name in K4 + K5 + K6:
             err = 0
             for layout, k in sorted(shapes[name]):
                 xs = [_rand_fp(sh, gen, st) for sh, st in layout]
@@ -956,15 +1077,15 @@ def _watched(fn):
     {kernel: set of operand shapes}, {kernel: {operand n: calls}},
     {kernel: {first operand's shape: calls}}). K4's, K5's and K6's records
     are of operand layouts, ((shape, strides) per operand, k) (k = 0 but for
-    mul_small), and K4's by_n also counts mul_small's calls per k under
-    ("k", k)."""
+    mul_small), K7's of (shape, exponent), and K4's by_n also counts
+    mul_small's calls per k under ("k", k)."""
     from lighthouse_tpu_torch.ops import fused
 
     shapes = {name: set() for name in fused.launches}
     by_n = {name: {} for name in fused.launches}
     by_shape = {name: {} for name in fused.launches}
     run, run_additive, run_curve = fused._run, fused._run_additive, fused._run_curve
-    run_miller = fused._run_miller
+    run_miller, run_pow = fused._run_miller, fused._run_pow
 
     def count(name, xs):
         n = xs[0].shape[-1]
@@ -994,13 +1115,18 @@ def _watched(fn):
         count(name, xs)
         return run_miller(name, xs)
 
+    def watch_pow(name, a, exponent):
+        shapes[name].add((tuple(a.shape), exponent))
+        count(name, (a,))
+        return run_pow(name, a, exponent)
+
     fused._run, fused._run_additive, fused._run_curve = watch, watch_additive, watch_curve
-    fused._run_miller = watch_miller
+    fused._run_miller, fused._run_pow = watch_miller, watch_pow
     try:
         out = fn()
     finally:
         fused._run, fused._run_additive, fused._run_curve = run, run_additive, run_curve
-        fused._run_miller = run_miller
+        fused._run_miller, fused._run_pow = run_miller, run_pow
     return out, shapes, by_n, by_shape
 
 
@@ -1317,6 +1443,10 @@ def phase_kzg():
 # k, the headline's distinct-message count.
 SINGLE_TIMED_CALLS = 5
 SINGLE_K = HEADLINE["distinct"]
+# Per single verification, the kernels its eager run must launch: K7, each
+# pairing's inverse and BLS's h2g2 power.
+SINGLE_REQUIRED = {"verify": K7, f"aggregate_verify_k{SINGLE_K}": K7,
+                   "verify_kzg_proof": ("fp_pow",)}
 
 
 def _hex(s):
@@ -1477,6 +1607,9 @@ def phase_single(kzg_state, distinct):
         per_eager = {k: v for k, v in fused.launches.items() if v}
         if ok is not True or ok2 is not True:
             raise AssertionError(f"{name} did not verify on the eager path")
+        missing = [k for k in SINGLE_REQUIRED[name] if k not in per_eager]
+        if missing:
+            raise AssertionError(f"the eager {name} launched no {missing}")
         first_s, first, new_graphs, walls = _single_api_runs(api_call, name)
         runs[name] = {"first_use_s": first_s, "first_use_launches": first,
                       "graphs_captured_at_first_use": new_graphs,
@@ -1819,8 +1952,10 @@ def phase_multi(sets, poisoned, distinct):
 
 
 # The port's own kernels in a trace (csrc/*.cu, each in an anonymous
-# namespace): matched against the wrapper's launch counts.
-PORT_KERNEL = re.compile(r"^void \(anonymous namespace\)::(fp(_add|_mul|2|12)|curve)_kernel")
+# namespace; a template's name starts with its return type, K7's plain
+# functions' do not): matched against the wrapper's launch counts.
+PORT_KERNEL = re.compile(
+    r"^(void )?\(anonymous namespace\)::(fp(_add|_mul|2|12|_pow|2_pow)|curve)_kernel")
 
 
 def _trace(fn):
@@ -1874,9 +2009,12 @@ def _profiled(fn):
 
 def _units(gen):
     """One call of each unit at the headline's shapes (G1 at n sets, G2 and
-    the Miller steps at m messages and m + 1 pairs): name -> thunk."""
+    the Miller steps at m messages and m + 1 pairs, the Fp inverse at one
+    element, the sqrt-ratio power at h2g2's 2 x m): name -> thunk."""
     from lighthouse_tpu_torch.ops import curves as cv
     from lighthouse_tpu_torch.ops import fused, pairing
+    from lighthouse_tpu_torch.ops import limbs as lb
+    from lighthouse_tpu_torch.ops import tower as tw
 
     n, m = HEADLINE["n_sets"], HEADLINE["distinct"]
     a, b = (_rand_fp((6, 12, n), gen) for _ in range(2))
@@ -1886,6 +2024,7 @@ def _units(gen):
     g2a, g2b = (_rand_fp((3, 2, 12, m), gen) for _ in range(2))
     t, q = (_rand_fp((3, 2, 12, m + 1), gen) for _ in range(2))
     px, py, pz = _rand_fp((3, 12, m + 1), gen).unbind(0)     # p_proj.select(-3, i)
+    s = _rand_fp((2, 2, 12, m), gen)                          # h2g2's two rows
     return {
         "fp_add": lambda: fused.fp_add(a, b),
         "fp_sub": lambda: fused.fp_sub(a, b),
@@ -1899,6 +2038,8 @@ def _units(gen):
         "g2_double": lambda: cv.G2.double(g2a),
         "miller_dbl_step": lambda: pairing._dbl_step(t, px, py, pz),
         "miller_add_step": lambda: pairing._add_step(t, q, px, py, pz),
+        "fp_inv": lambda: lb.inv(one),
+        "fp2_sqrt_ratio_pow": lambda: tw.fp2_pow_fixed(s, tw._SQRT_RATIO_EXP),
     }
 
 
@@ -1918,7 +2059,7 @@ def phase_profile(headline, kzg_by_root):
         per_unit[name] = {"kernels": tr["kernels"], "wrapper_launches": sum(launched.values()),
                           "busy_ms": tr["busy_ms"]}
     for name in (("fp_add", "fp_sub", "fp_add_broadcast", "fp_add_strided") + K5
-                 + ("miller_dbl_step", "miller_add_step")):
+                 + ("miller_dbl_step", "miller_add_step", "fp_inv", "fp2_sqrt_ratio_pow")):
         if per_unit[name]["kernels"] != 1:
             raise AssertionError(f"{name} ran {per_unit[name]['kernels']} CUDA kernels, not 1")
     per_stage = {}
@@ -2632,15 +2773,21 @@ def _summary(kernels, by_shape, launches, shape_errs, launches_kzg, per_verify=N
     summary = []
     for name, per_n in kernels.items():
         source, replaces = SOURCES.get(name, SOURCES[fused._KERNELS[name][0]])
-        top = per_n[max(NS)]
+        if name in K7:          # per shape, at its path's exponent
+            top = per_n[str(K7_MAIN[name])]
+            extra = {"shape": list(K7_MAIN[name]),
+                     "ms_by_shape": {sh: v["ms"] for sh, v in per_n.items()},
+                     "floor_ms_by_shape": {sh: v["floor_ms"] for sh, v in per_n.items()}}
+        else:
+            top = per_n[max(NS)]
+            extra = {"n": max(NS), "ms_by_n": {n: v["ms"] for n, v in per_n.items()}}
         summary.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches.get(name),
                         "max_abs_err": max([shape_errs.get(name, 0)]
                                            + [v["max_abs_err"] for v in per_n.values()]),
                         "ms": top["ms"], "plain_ms": top["plain_ms"],
                         "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
-                        "library_ms": None, "n": max(NS),
-                        "ms_by_n": {n: v["ms"] for n, v in per_n.items()},
+                        "library_ms": None, **extra,
                         "launches_kzg": {b: v[name] for b, v in launches_kzg.items()},
                         "launches_per_verify": (per_verify or {}).get(name),
                         "launches_kzg_per_verify": {b: v[name] for b, v in
@@ -2685,7 +2832,8 @@ def main(argv) -> int:
     kzg_errs = phase_main_path_shapes(kzg_shapes, "kzg_shapes", KZG_REQUIRED)
     single_shapes = phase_single(kzg_state, distinct)
     single_errs = phase_main_path_shapes(
-        single_shapes, "single_shapes", [k for k, v in single_shapes.items() if v])
+        single_shapes, "single_shapes",
+        sorted({k for k, v in single_shapes.items() if v} | set(K7)))
     wide_shapes, launches_wide = phase_wide(sets[:HEADLINE["distinct"]])
     wide_errs = phase_main_path_shapes(_new_shapes(wide_shapes, shapes), "wide_shapes", [])
     multi_shapes, launches_multi = phase_multi(sets, poisoned, distinct)

@@ -221,49 +221,9 @@ __host__ __device__ constexpr uint32_t p2_limb(int j) {
   return kLimbs[j];
 }
 
-// t = a's R rows times b: t[0 .. R + 12) exact (R + 12 limbs and a zero).
-template <int R>
-__device__ __forceinline__ void rows(const uint32_t* a, const uint32_t* b, uint32_t* t) {
-#pragma unroll
-  for (int c = 0; c < R + 13; ++c) t[c] = 0;
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    lh::row_even(t + i, a[i], b);
-    lh::row_odd(t + i + 1, a[i], b);
-  }
-}
-
 // A limb x as the signed x - 2^31, so that a small signed multiple d x is
 // one signed multiply-add and a bias d 2^31 the caller adds once.
 __device__ __forceinline__ int signed_limb(uint32_t x) { return (int)(x ^ 0x80000000u); }
-
-// out = u - p if u >= p, else u.
-__device__ __forceinline__ void canonical(const uint32_t* u, uint32_t* out) {
-  uint32_t d[lh::NL];
-  long long br = 0;   // signed borrow, arithmetic shift: -1 at the end iff u < p
-#pragma unroll
-  for (int j = 0; j < lh::NL; ++j) {
-    br += (long long)u[j] - lh::p_limb(j);
-    d[j] = (uint32_t)br;
-    br >>= 32;
-  }
-#pragma unroll
-  for (int j = 0; j < lh::NL; ++j) out[j] = br < 0 ? u[j] : d[j];
-}
-
-// out = t 2^-384 mod p, canonical, for 0 <= t < p 2^384 (t is clobbered),
-// on one lane: twelve steps of two chains each (redc_even, redc_odd), the
-// carry out of column i + 12 deferred to the next step as ec.
-__device__ __forceinline__ void redc_lane(uint32_t* t, uint32_t* out) {
-  uint32_t ec = 0;
-#pragma unroll
-  for (int i = 0; i < lh::NL; ++i) {
-    const uint32_t m = t[i] * lh::kN0;
-    const uint32_t k = lh::redc_even(t + i, m, ec);
-    ec = k + lh::redc_odd(t + i + 1, m);
-  }
-  canonical(t + lh::NL, out);
-}
 
 // The block's layout for P points a block and L lanes a unit: a warp's 32
 // lanes are V = 32 / (P L) units (a product or a reduction of the step)
@@ -382,7 +342,7 @@ __device__ __forceinline__ void combine(const uint32_t* words, const uint32_t* s
     v[l] = (uint32_t)br;
     br >>= 32;
   }
-  canonical(v, acc);   // v - q p is in [0, 2p)
+  lh::canonical(v, acc);   // v - q p is in [0, 2p)
 }
 
 // One product of the schedule, W = A B, 24 exact limbs into its column
@@ -414,7 +374,7 @@ __device__ __forceinline__ void product(const uint32_t* rec, const uint32_t* slo
       y[l] = wide[(lh::NL + l) * P];
     }
     LH_K5_STAMP(level, 0);
-    rows<lh::NL>(x, y, t);
+    lh::rows<lh::NL>(x, y, t);
     LH_K5_STAMP(level, 1);
 #pragma unroll
     for (int c = 0; c < lh::NW; ++c) wide[c * P] = t[c];
@@ -430,7 +390,7 @@ __device__ __forceinline__ void product(const uint32_t* rec, const uint32_t* slo
     for (int i = 0; i < H; ++i) x[i] = wide[(r * H + i) * P];
 #pragma unroll
     for (int l = 0; l < lh::NL; ++l) y[l] = wide[(lh::NL + l) * P];
-    rows<H>(x, y, t);
+    lh::rows<H>(x, y, t);
     LH_K5_STAMP(level, 1);
     uint32_t* part = wide + lh::NW * P;
     if (r) {
@@ -513,7 +473,7 @@ __device__ __forceinline__ void reduce(const uint32_t* rec, const uint32_t* prod
       c >>= 32;
     }
     LH_K5_STAMP(level, 5);
-    redc_lane(t, out);
+    lh::redc_lane(t, out);
     LH_K5_STAMP(level, 6);
   } else {
     long long* sums = reinterpret_cast<long long*>(scratch) + q;
@@ -574,7 +534,7 @@ __device__ __forceinline__ void reduce(const uint32_t* rec, const uint32_t* prod
       u[l] = (uint32_t)cu;
       cu >>= 32;
     }
-    canonical(u, out);
+    lh::canonical(u, out);
   }
 }
 

@@ -318,6 +318,49 @@ __device__ __forceinline__ uint32_t redc_odd(uint32_t* t, uint32_t m) {
 }
 #endif
 
+// --- One lane's product and REDC on the chains above: K5's and K6's (csrc/
+// curve_op.cu) and K7's (csrc/fp_pow.cu).
+
+// t = a's R rows times b: t[0 .. R + 12) exact (R + 12 limbs and a zero).
+template <int R>
+__device__ __forceinline__ void rows(const uint32_t* a, const uint32_t* b, uint32_t* t) {
+#pragma unroll
+  for (int c = 0; c < R + 13; ++c) t[c] = 0;
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    row_even(t + i, a[i], b);
+    row_odd(t + i + 1, a[i], b);
+  }
+}
+
+// out = u - p if u >= p, else u.
+__device__ __forceinline__ void canonical(const uint32_t* u, uint32_t* out) {
+  uint32_t d[NL];
+  long long br = 0;   // signed borrow, arithmetic shift: -1 at the end iff u < p
+#pragma unroll
+  for (int j = 0; j < NL; ++j) {
+    br += (long long)u[j] - p_limb(j);
+    d[j] = (uint32_t)br;
+    br >>= 32;
+  }
+#pragma unroll
+  for (int j = 0; j < NL; ++j) out[j] = br < 0 ? u[j] : d[j];
+}
+
+// out = t 2^-384 mod p, canonical, for 0 <= t < p 2^384 (t is clobbered),
+// on one lane: twelve steps of two chains each (redc_even, redc_odd), the
+// carry out of column i + 12 deferred to the next step as ec.
+__device__ __forceinline__ void redc_lane(uint32_t* t, uint32_t* out) {
+  uint32_t ec = 0;
+#pragma unroll
+  for (int i = 0; i < NL; ++i) {
+    const uint32_t m = t[i] * kN0;
+    const uint32_t k = redc_even(t + i, m, ec);
+    ec = k + redc_odd(t + i + 1, m);
+  }
+  canonical(t + NL, out);
+}
+
 // out = a + b mod p for canonical a, b; out may alias a or b.
 __device__ __forceinline__ void add_mod(const uint32_t* a, const uint32_t* b, uint32_t* out) {
   uint32_t s[NL], d[NL];

@@ -20,6 +20,10 @@ XLA field/tower products they fuse, ``ops/limbs.py`` / ``ops/tower.py``
                              csrc/curve_op.cu  no Pallas counterpart: the Miller-loop steps
                                                XLA fuses (ops/bm/pairing.py:24 _dbl_step,
                                                :63 _add_step), on K5's engine
+    K7  fp_pow / fp2_pow     csrc/fp_pow.cu    no Pallas counterpart: the public-exponent
+                                               powers XLA fuses into one lax.scan
+                                               (ops/bm/limbs.py:433 pow_fixed, scan at :462;
+                                               ops/bm/tower.py:165 fp2_pow_fixed, scan at :193)
 
 Representation (one for the whole port): an Fp element is 12 little-endian
 32-bit limbs of its Montgomery form x * 2^384 mod p, canonical in [0, p),
@@ -67,7 +71,13 @@ is its launch floor plus one block's critical path: its schedule
 units (lanes or pairs of lanes) of a block, with intermediates in shared
 memory. K6 runs a Miller step's G2 doubling or addition and its line at P
 as three levels of the same schedule: 10,368 and 14,400 multiply-adds a
-pair against 1,008 and 1,296 bytes, bound by operations.
+pair against 1,008 and 1,296 bytes, bound by operations. K7 runs a whole
+4-bit fixed-window power a call (the Fp inverse: 381 squares and 104
+products in series; the Fp2 power with its exponent split at p, e = A p +
+B, a^e = conj(a)^A a^B on one chain of squares), an element's chain on
+one lane (Fp) or a pair of lanes (Fp2), its table in shared memory: bound
+by operations, but at the paths' 1-256 elements one chain of dependent
+products.
 """
 
 import ctypes
@@ -89,7 +99,7 @@ launches = {
     "fp12_sqr": 0, "fp12_mul": 0, "fp12_line": 0,
     "fp_add": 0, "fp_sub": 0, "fp_neg": 0, "fp_mul_small": 0,
     "g1_add": 0, "g1_double": 0, "g2_add": 0, "g2_double": 0,
-    "miller_dbl": 0, "miller_add": 0,
+    "miller_dbl": 0, "miller_add": 0, "fp_pow": 0, "fp2_pow": 0,
 }
 
 
@@ -886,6 +896,64 @@ def _miller_plain(step: str):
 PLAIN.update(miller_dbl=_miller_plain("_dbl_step_plain"),
              miller_add=_miller_plain("_add_step_plain"))
 
+
+def pow_digits(exponent: int) -> list:
+    """exponent's 4-bit digits, most significant first ([0] for 0): what
+    K7's Fp mode reads from its digit buffer."""
+    digits = []
+    while exponent:
+        digits.append(exponent & 15)
+        exponent >>= 4
+    return digits[::-1] or [0]
+
+
+def fp2_pow_digits(exponent: int) -> list:
+    """What K7's Fp2 mode reads: exponent = A p + B (B < p) as one byte a
+    window, most significant first, B's digit in the low nibble and A's in
+    the high one (a^e = conj(a)^A a^B in Fp2)."""
+    a, b = (pow_digits(x) for x in divmod(exponent, P))
+    width = max(len(a), len(b))
+    a, b = [0] * (width - len(a)) + a, [0] * (width - len(b)) + b
+    return [(hi << 4) | lo for hi, lo in zip(a, b)]
+
+
+def pow_loop(a, exponent: int, one, mul, sqr):
+    """a^exponent for a public exponent by a 4-bit fixed window
+    (ops/bm/limbs.py pow_fixed semantics), one mul or sqr call a step; one
+    broadcasts to a. K7's plain version on K1's or K2's."""
+    if exponent == 0:
+        return one.expand_as(a).contiguous()
+    if exponent < 16:
+        acc = a
+        for c in bin(exponent)[3:]:
+            acc = sqr(acc)
+            if c == "1":
+                acc = mul(acc, a)
+        return acc
+    digits = pow_digits(exponent)
+    table = [one.expand_as(a).contiguous(), a, sqr(a)]
+    for _ in range(13):
+        table.append(mul(table[-1], a))
+    acc = table[digits[0]]
+    for d in digits[1:]:
+        acc = sqr(sqr(sqr(sqr(acc))))
+        if d:
+            acc = mul(acc, table[d])
+    return acc
+
+
+def fp_pow_plain(a, exponent: int):
+    from . import limbs     # imports this module: bound at call time
+    return pow_loop(a, exponent, limbs.one(a.device), fp_mul_plain, fp_sqr_plain)
+
+
+def fp2_pow_plain(a, exponent: int):
+    from . import tower
+    return pow_loop(a, exponent, tower.consts(a.device).fp2_one, fp2_mul_plain, fp2_sqr_plain)
+
+
+PLAIN.update(fp_pow=fp_pow_plain, fp2_pow=fp2_pow_plain)
+
 # --------------------------------------------------------------------------
 # Wrappers
 # --------------------------------------------------------------------------
@@ -915,6 +983,9 @@ _KERNELS = {
     # K6 (the same library) launches through _run_miller.
     "miller_dbl": ("curve_op", "lh_miller_dbl", ("g2", "fp", "fp", "fp")),
     "miller_add": ("curve_op", "lh_miller_add", ("g2", "g2", "fp", "fp", "fp")),
+    # K7 launches through _run_pow.
+    "fp_pow": ("fp_pow", "lh_fp_pow", ("fp",)),
+    "fp2_pow": ("fp_pow", "lh_fp2_pow", ("fp2",)),
 }
 
 
@@ -1323,10 +1394,70 @@ def miller_add(t, q, px, py, pz):
     return _run_miller("miller_add", (t, q, px, py, pz))
 
 
+# --- K7 ---------------------------------------------------------------------
+#
+# K7 reads the exponent's digits (pow_digits, fp2_pow_digits) from a device
+# buffer made once per mode, exponent and device and kept here, so a CUDA
+# graph that captured a launch reads a live buffer at every replay and no
+# capture holds a host copy. The paths' graphs run each stage eagerly
+# before capturing it, which makes their buffers.
+
+POW_EXPONENT_BITS = 1 << 22
+_K7_DIGITS: dict = {}       # (mode, exponent, device) -> uint8 digits on the device
+
+
+def _k7_digits(name, exponent: int, device) -> torch.Tensor:
+    key = (name, exponent, device)
+    buf = _K7_DIGITS.get(key)
+    if buf is None:
+        if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("K7: the digits of an exponent are made on the device outside "
+                               "a graph capture; run the call once eagerly first")
+        digits = (pow_digits if name == "fp_pow" else fp2_pow_digits)(exponent)
+        buf = _K7_DIGITS[key] = torch.tensor(digits, dtype=torch.uint8, device=device)
+    return buf
+
+
+def _k7_args(name, a, exponent: int):
+    """The output of one K7 launch, the digit buffer it reads, and the C
+    entry point's arguments but the stream: the output's, the operand's and
+    the digits' data pointers, the digit count, rows and n."""
+    digits = _k7_digits(name, exponent, a.device)
+    out = torch.empty_like(a)
+    n = a.shape[-1]
+    rows = a.numel() // (n * math.prod(_TAIL[_KERNELS[name][2][0]]))
+    return out, digits, [out.data_ptr(), a.data_ptr(), digits.data_ptr(), digits.numel(), rows, n]
+
+
+def _run_pow(name, a, exponent):
+    _check(name, (a,))
+    if not isinstance(exponent, int) or not 0 <= exponent < 1 << POW_EXPONENT_BITS:
+        raise ValueError(f"{name}: the exponent is not an int in [0, 2^{POW_EXPONENT_BITS})")
+    if a.device.type == "cpu":
+        return PLAIN[name](a, exponent)
+    if a.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {a.device}")
+    if a.numel() == 0:
+        return torch.empty_like(a)
+    out, _digits, args = _k7_args(name, a, exponent)
+    _call_kernel(name, args, a.device)
+    return out
+
+
+def fp_pow(a, exponent: int):
+    """K7: a^exponent on (..., 12, n), a public exponent, one launch."""
+    return _run_pow("fp_pow", a, exponent)
+
+
+def fp2_pow(a, exponent: int):
+    """K7: a^exponent on (..., 2, 12, n), a public exponent, one launch."""
+    return _run_pow("fp2_pow", a, exponent)
+
+
 WRAPPERS = {
     "fp_mul": fp_mul, "fp_sqr": fp_sqr, "fp2_mul": fp2_mul, "fp2_sqr": fp2_sqr,
     "fp12_sqr": fp12_sqr, "fp12_mul": fp12_mul, "fp12_line": fp12_mul_line,
     "fp_add": fp_add, "fp_sub": fp_sub, "fp_neg": fp_neg, "fp_mul_small": fp_mul_small,
     "g1_add": g1_add, "g1_double": g1_double, "g2_add": g2_add, "g2_double": g2_double,
-    "miller_dbl": miller_dbl, "miller_add": miller_add,
+    "miller_dbl": miller_dbl, "miller_add": miller_add, "fp_pow": fp_pow, "fp2_pow": fp2_pow,
 }

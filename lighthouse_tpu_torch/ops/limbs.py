@@ -10,7 +10,8 @@ p (``convert.to_ints``).
 
 The products are the K1 kernel (``fused.fp_mul``); additions, subtractions,
 negations and small multiples are the K4 kernel (``fused.fp_add`` ...),
-whose operands may broadcast. Both return canonical values.
+whose operands may broadcast; a public-exponent power (and so the inverse)
+is the K7 kernel (``fused.fp_pow``). All return canonical values.
 """
 
 from functools import lru_cache
@@ -163,37 +164,10 @@ def tree_reduce_minor(vals, combine, identity, axis_size: int):
     return vals
 
 
-def pow_fixed_generic(a, exponent: int, one_, mul_, sqr_):
-    """a^exponent for a public exponent: a 4-bit fixed window (limbs.pow_fixed
-    semantics), run as a Python loop of kernel calls."""
-    if exponent == 0:
-        return one_.expand_as(a).contiguous()
-    if exponent < 16:
-        acc = a
-        for c in bin(exponent)[3:]:
-            acc = sqr_(acc)
-            if c == "1":
-                acc = mul_(acc, a)
-        return acc
-    digits = []
-    e = exponent
-    while e:
-        digits.append(e & 15)
-        e >>= 4
-    digits = digits[::-1]
-    table = [one_.expand_as(a).contiguous(), a, sqr_(a)]
-    for _ in range(13):
-        table.append(mul_(table[-1], a))
-    acc = table[digits[0]]
-    for d in digits[1:]:
-        acc = sqr_(sqr_(sqr_(sqr_(acc))))
-        if d:
-            acc = mul_(acc, table[d])
-    return acc
-
-
 def pow_fixed(a, exponent: int):
-    return pow_fixed_generic(a, exponent, one(a.device), mul, sqr)
+    """a^exponent for a public exponent (ops/bm/limbs.py pow_fixed): K7, one
+    launch (fused.fp_pow)."""
+    return fused.fp_pow(a.contiguous(), exponent)
 
 
 def inv(a):

@@ -8,9 +8,10 @@ this module follows function for function) and ``lighthouse_tpu/ops/tower.py``
     Fp6  : (..., 3, 2, 12, n)    a0 + a1 v + a2 v^2, v^3 = xi = 1 + u
     Fp12 : (..., 2, 3, 2, 12, n) a0 + a1 w,        w^2 = v
 
-Fp2 products are the K2 kernel; the Fp12 square, product and sparse-line
-product are the K3 kernel. Everything else stacks its operands so that one
-kernel call does all the products of a step.
+Fp2 products are the K2 kernel and the public-exponent Fp2 power the K7
+kernel; the Fp12 square, product and sparse-line product are the K3
+kernel. Everything else stacks its operands so that one kernel call does
+all the products of a step.
 """
 
 from functools import lru_cache
@@ -106,8 +107,8 @@ def fp2_select(mask, a, b):
 
 
 def fp2_pow_fixed(a, exponent: int):
-    return lb.pow_fixed_generic(a, exponent, consts(a.device).fp2_one,
-                                fp2_mul, fp2_sqr)
+    """a^exponent for a public exponent: K7, one launch (fused.fp2_pow)."""
+    return fused.fp2_pow(a.contiguous(), exponent)
 
 
 # --- sqrt_ratio (ops/bm/tower.py fp2_sqrt_ratio, same correction table) -------

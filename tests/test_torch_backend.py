@@ -16,6 +16,7 @@ from lighthouse_tpu.ops import backend as jbackend
 from lighthouse_tpu_torch import convert
 from lighthouse_tpu_torch.crypto.bls import api
 from lighthouse_tpu_torch.ops import backend
+from test_torch_multi import memoized_stage1
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -52,8 +53,11 @@ def _port(sets):
 def bucket():
     """The bucket graphs that both batches below reach: 3 sets (n_bucket
     4) of at most 2 keys over 2 messages (m_bucket 4), one signature
-    unchecked."""
-    return backend.graph_core(4, 2, 4, False, torch.device("cpu"))
+    unchecked. Both hash the same two messages, so its h2g2 is memoized
+    (test_torch_multi.memoized_stage1): the second reuses the first's."""
+    core = backend.graph_core(4, 2, 4, False, torch.device("cpu"))
+    with memoized_stage1(core.h2g2):
+        yield core
 
 
 def test_valid_batch_matches_oracle(jax_sets, bucket):

@@ -33,6 +33,7 @@ from lighthouse_tpu_torch.crypto.bls import cpu_backend
 from lighthouse_tpu_torch.crypto.bls import hash_to_curve as h2c
 from lighthouse_tpu_torch.observability import stages
 from lighthouse_tpu_torch.ops import backend
+from test_torch_multi import memoized_stage1
 
 VECTORS = Path(__file__).parent / "vectors" / "general" / "phase0" / "bls" / "batch_verify"
 M1, M2, M3 = b"\x11" * 32, b"\x22" * 32, b"\x33" * 32
@@ -102,9 +103,12 @@ def test_async_batches_in_flight_read_their_own_verdicts(sets, _one_torch_thread
     hist = stages.stage_seconds()
     before = {s: hist.get_count(engine="gpu", stage=s) for s in ("h2g2", "prepare", "pairing")}
     stages.force_timing(True)
+    # Both batches hash M1 and M3: the second reuses the first's h2g2
+    # (test_torch_multi.memoized_stage1); the stage still runs and is timed.
     try:
-        good = backend.verify_signature_sets_gpu_async(valid, device="cpu")
-        poisoned = backend.verify_signature_sets_gpu_async(bad, device="cpu")
+        with memoized_stage1(backend._stage1_graph(2, torch.device("cpu"))):
+            good = backend.verify_signature_sets_gpu_async(valid, device="cpu")
+            poisoned = backend.verify_signature_sets_gpu_async(bad, device="cpu")
     finally:
         stages.force_timing(False)
     assert isinstance(good, backend.PendingVerdict)

@@ -8,6 +8,7 @@ coordinates), and sharded verdicts against JAX's oracle. JAX's own sharded
 verify is not run here (it compiles for minutes); the stages run through
 the kernels' plain versions, each once a module."""
 
+import contextlib
 import functools
 
 import numpy as np
@@ -170,13 +171,12 @@ def test_sharded_stage2_is_affine_equal(stage2):
         assert row7 is None and (row6 is not None) == (i == 1)
 
 
-@pytest.fixture(scope="module")
-def shard_h2g2():
-    """The verdict tests' stage-1 graph (m = 4 over 2 shards: m/d = 2 on
-    the CPU), its function memoized on its input: both batches hash the
-    same messages, so the second reuses the first's h2g2, a pure function
-    of u, instead of computing it again through the plain versions."""
-    graph = backend._stage1_graph(2, CPU)
+@contextlib.contextmanager
+def memoized_stage1(graph):
+    """A stage-1 graph's function (h2g2, a pure function of u) memoized on
+    its input while the block runs: batches that hash the same messages
+    reuse the first one's h2g2 instead of computing it again through the
+    plain versions (1-1.5 s a call on the CPU). Yields the memo."""
     fn, memo = graph.fn, {}
 
     def memoized(u):
@@ -186,8 +186,19 @@ def shard_h2g2():
         return memo[key]
 
     graph.fn = memoized
-    yield graph, memo
-    graph.fn = fn
+    try:
+        yield memo
+    finally:
+        graph.fn = fn
+
+
+@pytest.fixture(scope="module")
+def shard_h2g2():
+    """The verdict tests' stage-1 graph (m = 4 over 2 shards: m/d = 2 on
+    the CPU), memoized: both batches hash the same messages."""
+    graph = backend._stage1_graph(2, CPU)
+    with memoized_stage1(graph) as memo:
+        yield graph, memo
 
 
 @pytest.mark.parametrize("poison", [None, 1])

@@ -35,6 +35,7 @@ from lighthouse_tpu_torch.crypto.bls import curves as tcurves
 from lighthouse_tpu_torch.crypto.bls.constants import P
 from lighthouse_tpu_torch.ops import backend
 from lighthouse_tpu_torch.ops import kzg as okzg
+from test_torch_multi import memoized_stage1
 
 SEED = 1111
 N = 16                                  # the dev KZG domain
@@ -82,13 +83,16 @@ def _both(fn_name, keys_of, args_of, sig):
 
 @pytest.fixture(scope="module")
 def device_verdicts(bls):
-    """Every BLS case that reaches the device, run once: {case: (port, jax)}."""
+    """Every BLS case that reaches the device, run once: {case: (port, jax)}.
+    verify_wrong_message and fast_aggregate_valid both hash msgs[1] at m = 1,
+    so that bucket's h2g2 is memoized (test_torch_multi.memoized_stage1)."""
     msgs = bls["msgs"]
     out = {}
-    for case, msg in (("verify_valid", msgs[0]), ("verify_wrong_message", msgs[1])):
-        out[case] = _both("verify", lambda k: [bls[k][0]], [msg], _sigs(bls["one"]))
-    out["fast_aggregate_valid"] = _both("fast_aggregate_verify", lambda k: [bls[k][1:]],
-                                        [msgs[1]], _sigs(bls["same"]))
+    with memoized_stage1(backend._stage1_graph(1, torch.device("cpu"))):
+        for case, msg in (("verify_valid", msgs[0]), ("verify_wrong_message", msgs[1])):
+            out[case] = _both("verify", lambda k: [bls[k][0]], [msg], _sigs(bls["one"]))
+        out["fast_aggregate_valid"] = _both("fast_aggregate_verify", lambda k: [bls[k][1:]],
+                                            [msgs[1]], _sigs(bls["same"]))
     assert backend.single_m_bucket(3) == 4       # one padded row, masked
     out["aggregate_k3_valid"] = _both("aggregate_verify", lambda k: [bls[k][1:]],
                                       [msgs], _sigs(bls["each"], checked=False))
