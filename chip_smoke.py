@@ -24,11 +24,12 @@ Phases, each printing one JSON line:
             shapes, K2_SHAPES, K4_SHAPES, K5_SHAPES, K6_SHAPES: both K6
             modes at n = 2, 65, 4097 and 16385 pairs), each beside floor_ms,
             an empty kernel on its library's grid timed the same way (also
-            at every n). K7 (the powers) is held at K7_SHAPES instead of
-            the n above, at each exponent of K7_EXPONENTS (its path's and
-            0, 1, 15, 16, 17), its first columns 0, 1 and p - 1 (Fp2 also
-            (1, 0) and (0, 1)), and timed at its path's exponent beside an
-            empty kernel on its own grid.
+            at every n). K7 (the inverse and the powers) is held at
+            K7_SHAPES instead of the n above, the powers at each exponent
+            of _pow_exponents (their path's and 0, 1, 15, 16, 17), its
+            first columns p - 1, 0, 1, 2 and R mod p (Fp2 (p - 1, p - 1),
+            (0, 0), (1, 0) and (0, 1)), and timed (the powers at their
+            path's exponent) beside an empty kernel on its own grid.
    wrapper  the host's cost of the parts of one K2 wrapper call (checks,
             output allocation, library lookup, device context, stream,
             the ctypes launch), of one K4 call (checks, launch
@@ -46,7 +47,7 @@ Phases, each printing one JSON line:
             just before its first call (which runs each stage eagerly once
             and captures it) and read just after, and every kernel must have
             been launched (but OFF_PATH's, which no path launches since K6
-            and K7),
+            and K7's inverse),
             and none of OFF_PAIRING at the pairing's m + 1 = 65 pairs; a warm
             call must launch nothing from Python. Then
             the eager run split into its stages for their wall times, and
@@ -278,7 +279,11 @@ K4_SHAPES = ((2, 12, 64), (2, 12, 65), (12, 4096), (2, 12, 4096), (6, 12, 4096))
 # a unit from 1025).
 K5 = ("g1_add", "g1_double", "g2_add", "g2_double")
 K6 = ("miller_dbl", "miller_add")
-K7 = ("fp_pow", "fp2_pow")
+# K7: the inverse (fp_inv, no exponent) and the powers (K7_POW, a public
+# exponent each call). The paths run fp_inv and fp2_pow (K7_PATH).
+K7_POW = ("fp_pow", "fp2_pow")
+K7 = ("fp_inv",) + K7_POW
+K7_PATH = ("fp_inv", "fp2_pow")
 K5_SHAPES = {"g1_add": ((3, 12, 16), (3, 12, 512), (3, 12, 4096), (2, 3, 12, 4096)),
              "g1_double": ((3, 12, 16), (3, 12, 512), (3, 12, 4096)),
              "g2_add": ((3, 2, 12, 64), (3, 2, 12, 65), (3, 2, 12, 4096), (3, 2, 12, 16384)),
@@ -297,16 +302,17 @@ FLOORED = {"fp_mul": ("lh_fp_empty", K1_SHAPES, "k1"),
            "curve_op": ("lh_curve_empty", {**K5_SHAPES, **K6_SHAPES}, "k5")}
 # Kernels timed against an empty kernel of their own grid, not their
 # library's: K6 against one on the doubling step's.
-FLOOR_ENTRY = {**{name: "lh_miller_empty" for name in K6},
+FLOOR_ENTRY = {**{name: "lh_miller_empty" for name in K6}, "fp_inv": "lh_fp_inv_empty",
                "fp_pow": "lh_fp_pow_empty", "fp2_pow": "lh_fp2_pow_empty"}
-# K7's shapes: the final exponentiation's inverse (12, 1); the sqrt-ratio
-# power at the paths' m = 1 (single verifications), 64 (the headline) and
-# 256 (the distinct-message batch) messages, with h2g2's two rows; and 4096
-# elements. Its exponents: each path's first (timed), then the short ones.
-# K7_MAIN is each mode's headline shape, its summary's row.
-K7_SHAPES = {"fp_pow": ((12, 1), (12, 4096)),
+# K7's shapes: the final exponentiation's inverse (12, 1), and the Fp
+# power there (no path runs it); the sqrt-ratio power at the paths' m = 1
+# (single verifications), 64 (the headline) and 256 (the distinct-message
+# batch) messages, with h2g2's two rows; and 4096 elements. The powers'
+# exponents: each path's first (timed), then the short ones. K7_MAIN is each
+# mode's headline shape, its summary's row.
+K7_SHAPES = {"fp_inv": ((12, 1), (12, 4096)), "fp_pow": ((12, 1), (12, 4096)),
              "fp2_pow": ((2, 2, 12, 1), (2, 2, 12, 64), (2, 2, 12, 256), (2, 12, 4096))}
-K7_MAIN = {"fp_pow": (12, 1), "fp2_pow": (2, 2, 12, 64)}
+K7_MAIN = {"fp_inv": (12, 1), "fp_pow": (12, 1), "fp2_pow": (2, 2, 12, 64)}
 HEADLINE = dict(n_sets=4096, keys=4, distinct=64)
 # KZG batches, one RPC response each: BlobsByRoot for one block
 # (MAX_BLOBS_PER_BLOCK = 6) and BlobsByRange for one epoch of full blocks
@@ -321,11 +327,12 @@ KZG_ELEMENTS = 4096
 K4 = ("fp_add", "fp_sub", "fp_neg", "fp_mul_small")
 # Kernels no path launches: fp_mul_small since K6 folded the Miller steps'
 # small multiples into its schedule, fp_sqr since K7 took the Fp inverse's
-# squares (its only path caller). Held against their plain versions in the
-# kernels phase (every shape, n = 65 included), required on no path.
-OFF_PATH = ("fp_mul_small", "fp_sqr")
+# squares (its only path caller), fp_pow since the inverse became K7's
+# binary GCD (fp_inv). Held against their plain versions in the kernels
+# phase (every shape, n = 65 included), required on no path.
+OFF_PATH = ("fp_mul_small", "fp_sqr", "fp_pow")
 KZG_REQUIRED = (("fp_mul", "fp2_mul", "fp12_sqr", "fp12_mul", "fp12_line", "fp_add", "fp_sub",
-                 "fp_neg", "g1_add", "g1_double") + K6 + ("fp_pow",))
+                 "fp_neg", "g1_add", "g1_double") + K6 + ("fp_inv",))
 
 # Kernels K6 took off the pairing's width (n = m + 1 pairs; KZG's 2): none
 # of them may launch at that n.
@@ -376,6 +383,12 @@ WORK = {
     # written, 576.
     "miller_dbl": (42 * FP_PROD + 30 * REDC, 288 + 144 + 576),
     "miller_add": (66 * FP_PROD + 34 * REDC, 2 * 288 + 144 + 576),
+    # K7's inverse, per element, as its binary GCD (csrc/fp_pow.cu) needs
+    # them: 37 batches, each update_fg's 2 x 2 products of 13 signed 30-bit
+    # limbs, update_de's 2 x 3 and its two quotient words, then one
+    # Montgomery product by +-R^3. The divsteps are adds and selects, no
+    # multiply. One Fp read and one written.
+    "fp_inv": (37 * ((2 * 2 + 2 * 3) * 13 + 2) + FP_PROD + REDC, 2 * 48),
 }
 
 
@@ -428,6 +441,9 @@ SOURCES = {
                    "none (no pallas_call): lighthouse_tpu/ops/bm/pairing.py:63 _add_step, "
                    "fused by XLA"),
     # K7, one source, per kernel:
+    "fp_inv": ("lighthouse_tpu_torch/ops/csrc/fp_pow.cu",
+               "none (no pallas_call): lighthouse_tpu/ops/bm/limbs.py:466 inv, pow_fixed(a, "
+               "P - 2), its lax.scan at :462 fused by XLA"),
     "fp_pow": ("lighthouse_tpu_torch/ops/csrc/fp_pow.cu",
                "none (no pallas_call): lighthouse_tpu/ops/bm/limbs.py:433 pow_fixed, its "
                "lax.scan at :462 fused by XLA"),
@@ -623,14 +639,14 @@ def _operands(name, shapes, gen):
 
 def _pow_edges(name, x):
     """K7's edge values in x's first columns, as Montgomery forms: p - 1,
-    0 and 1; an Fp2 (p - 1, p - 1), (0, 0), (1, 0) and (0, 1)."""
+    0, 1, 2 and R mod p; an Fp2 (p - 1, p - 1), (0, 0), (1, 0) and (0, 1)."""
     from lighthouse_tpu_torch.ops import limbs as lb
 
-    cols = (((lb.P - 1, 0, 1),) if name == "fp_pow"
+    cols = (((lb.P - 1, 0, 1, 2, lb.R_MOD_P),) if name != "fp2_pow"
             else ((lb.P - 1, 0, 1, 0), (lb.P - 1, 0, 0, 1)))
     for c, vals in enumerate(cols):
         k = min(len(vals), x.shape[-1])
-        part = x if name == "fp_pow" else x[..., c, :, :]
+        part = x if name != "fp2_pow" else x[..., c, :, :]
         part[..., :k] = lb.ints_to_limbs(vals[:k], x.device)
 
 
@@ -639,7 +655,7 @@ def _call(name, xs, k=K4_TIMED_K, plain=False):
     from lighthouse_tpu_torch.ops import fused
 
     fn = (fused.PLAIN if plain else fused.WRAPPERS)[name]
-    return fn(*xs, k) if name in ("fp_mul_small",) + K7 else fn(*xs)
+    return fn(*xs, k) if name in ("fp_mul_small",) + K7_POW else fn(*xs)
 
 
 def _check_equal(name, what, xs, k=K4_TIMED_K):
@@ -729,11 +745,13 @@ def _timed(name, shapes, gen):
 
 
 def _pow_exponents(name):
-    """K7_EXPONENTS for mode `name`: its path's exponent first (timed),
-    then 0, 1, 15, 16 and 17."""
+    """The exponents K7 mode `name` is held at: the powers' path exponent
+    first (timed), then 0, 1, 15, 16 and 17; the inverse none (None)."""
     from lighthouse_tpu_torch.crypto.bls.constants import P
     from lighthouse_tpu_torch.ops import tower
 
+    if name == "fp_inv":
+        return (None,)
     path = P - 2 if name == "fp_pow" else tower._SQRT_RATIO_EXP
     return (path, 0, 1, 15, 16, 17)
 
@@ -742,7 +760,9 @@ def _timed_pow(name, shape, gen):
     """K7 mode `name` at one operand shape: bit for bit with its plain
     version at each exponent of _pow_exponents (edge values in the first
     columns), then timed at the path's exponent beside an empty kernel on
-    its grid, with its bound from pow_work."""
+    its grid, with its bound from pow_work (the inverse's from WORK, and the
+    power p - 2's beside it as pow_bound_ms, for comparison only)."""
+    from lighthouse_tpu_torch.crypto.bls.constants import P
     from lighthouse_tpu_torch.ops import fused
 
     exps = _pow_exponents(name)
@@ -754,14 +774,21 @@ def _timed_pow(name, shape, gen):
     call_ms = cuda_ms(lambda: _call(name, [x], e), reps)
     ms = graph_ms(lambda: _call(name, [x], e), reps)
     plain_ms = cuda_ms(lambda: _call(name, [x], e, plain=True), 1)
-    mads, nbytes = pow_work(name, e)
-    t_ops, t_bytes = elems * mads / INT32_MAD_PER_S * 1e3, elems * nbytes / HBM_BYTES_PER_S * 1e3
+    def bound(mads, nbytes):
+        t_ops = elems * mads / INT32_MAD_PER_S * 1e3
+        t_bytes = elems * nbytes / HBM_BYTES_PER_S * 1e3
+        return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+    bound_ms, bound_by = bound(*(WORK[name] if name == "fp_inv" else pow_work(name, e)))
     floor_ms, floor_call_ms = _floor("fp_pow", shape, fused._KERNELS[name][2][0], name)
-    return {"mismatches": 0, "max_abs_err": err, "exponents": len(exps),
-            "windows": len(fused._k7_digits(name, e, x.device)), "ms": ms, "call_ms": call_ms,
-            "plain_ms": plain_ms, "floor_ms": floor_ms, "floor_call_ms": floor_call_ms,
-            "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+    row = {"mismatches": 0, "max_abs_err": err, "exponents": len(exps),
+           "windows": None if e is None else len(fused._k7_digits(name, e, x.device)),
+           "ms": ms, "call_ms": call_ms,
+           "plain_ms": plain_ms, "floor_ms": floor_ms, "floor_call_ms": floor_call_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by}
+    if name == "fp_inv":
+        row["pow_bound_ms"] = bound(*pow_work("fp_pow", P - 2))[0]
+    return row
 
 
 def _entries(lib):
@@ -935,7 +962,7 @@ def phase_main_path_shapes(shapes, phase="main_path_shapes", required=None):
             if name in required:
                 raise AssertionError(f"no {phase} recorded for {name}")
             continue
-        if name in K7:
+        if name in K7_POW:
             errs[name] = max(_check_equal(name, f"{shape} e={e}",
                                           _operands(name, [shape], gen), e)
                              for shape, e in sorted(shapes[name]))
@@ -1002,9 +1029,9 @@ def _main_path_runs(verify, eager, what, required=None):
     point (the first captures the bucket's graphs: each stage once eagerly,
     then under capture; the warm one replays), with the launch counts reset
     just before each and read just after. Each kernel of `required`
-    (default: all but OFF_PATH) must be launched in the first, and none
-    from Python in the warm one. -> (launches of the first run, its wall s, the warm
-    run's wall s)."""
+    (default: all but OFF_PATH) must be launched in the first, none of
+    OFF_PATH, and none from Python in the warm one. -> (launches of the
+    first run, its wall s, the warm run's wall s)."""
     from lighthouse_tpu_torch.ops import fused
 
     required = _main_required() if required is None else required
@@ -1016,6 +1043,9 @@ def _main_path_runs(verify, eager, what, required=None):
     missing = [k for k in required if launches[k] <= 0]
     if missing:
         raise AssertionError(f"the main path ({what}) launched no {missing}")
+    off = {k: launches[k] for k in OFF_PATH if launches[k]}
+    if off:
+        raise AssertionError(f"the main path ({what}) launched {off}, which no path runs")
     fused.reset_launches()
     ok, wall_s = _timed_verify(verify, *eager)
     if ok is not True:
@@ -1445,8 +1475,8 @@ SINGLE_TIMED_CALLS = 5
 SINGLE_K = HEADLINE["distinct"]
 # Per single verification, the kernels its eager run must launch: K7, each
 # pairing's inverse and BLS's h2g2 power.
-SINGLE_REQUIRED = {"verify": K7, f"aggregate_verify_k{SINGLE_K}": K7,
-                   "verify_kzg_proof": ("fp_pow",)}
+SINGLE_REQUIRED = {"verify": K7_PATH, f"aggregate_verify_k{SINGLE_K}": K7_PATH,
+                   "verify_kzg_proof": ("fp_inv",)}
 
 
 def _hex(s):
@@ -1953,9 +1983,22 @@ def phase_multi(sets, poisoned, distinct):
 
 # The port's own kernels in a trace (csrc/*.cu, each in an anonymous
 # namespace; a template's name starts with its return type, K7's plain
-# functions' do not): matched against the wrapper's launch counts.
+# functions' do not): matched against the wrapper's launch counts. Group 2
+# is the kernel's stem, _kernel_stem's value for the wrappers that launch it.
 PORT_KERNEL = re.compile(
-    r"^(void )?\(anonymous namespace\)::(fp(_add|_mul|2|12|_pow|2_pow)|curve)_kernel")
+    r"^(void )?\(anonymous namespace\)::(fp_add|fp_mul|fp2|fp12|fp_inv|fp_pow|fp2_pow|curve)"
+    r"_kernel")
+_LIB_STEM = {"fp_mul": "fp_mul", "fp2_mul": "fp2", "fp12_op": "fp12", "fp_add": "fp_add",
+             "curve_op": "curve"}
+
+
+def _kernel_stem(name):
+    """The stem of the CUDA kernel wrapper `name` launches (PORT_KERNEL's
+    group 2): its library's, or for K7 (one kernel a mode) its own name."""
+    from lighthouse_tpu_torch.ops import fused
+
+    lib = fused._KERNELS[name][0]
+    return _LIB_STEM.get(lib, name)
 
 
 def _trace(fn):
@@ -1980,8 +2023,10 @@ def _trace(fn):
         busy += max(0.0, stop - max(start, end))
         end = max(end, stop)
     counts = collections.Counter(e.name for e in kernels)
+    stems = collections.Counter(m.group(2) for m in map(PORT_KERNEL.match, (e.name for e in kernels))
+                                if m)
     return out, {"wall_s": wall, "kernels": len(kernels), "device_events": len(events),
-                 "port_kernels": sum(1 for e in kernels if PORT_KERNEL.match(e.name)),
+                 "port_kernels": sum(stems.values()), "port_kernel_stems": dict(stems),
                  "busy_ms": busy / 1e3, "idle_share_of_wall": 1 - busy / 1e6 / wall,
                  "top_by_count": [{"name": name[:160], "count": c}
                                   for name, c in counts.most_common(10)],
@@ -1997,12 +2042,21 @@ def _profiled(fn):
     from lighthouse_tpu_torch.ops import fused
 
     fn()
-    for _ in range(2):
+    for attempt in range(2):
         fused.reset_launches()
         out, tr = _trace(fn)
         launched = dict(fused.launches)
         if tr["port_kernels"] == sum(launched.values()):
             return out, tr, launched
+        want = collections.Counter()
+        for name, count in launched.items():
+            want[_kernel_stem(name)] += count
+        missing = {stem: {"launched": c, "traced": tr["port_kernel_stems"].get(stem, 0),
+                          "by": sorted(k for k, v in launched.items()
+                                       if v and _kernel_stem(k) == stem)}
+                   for stem, c in want.items() if c != tr["port_kernel_stems"].get(stem, 0)}
+        print(json.dumps({"trace_short_of_port_kernels": missing, "attempt": attempt + 1}),
+              flush=True)
     raise AssertionError(f"the trace holds {tr['port_kernels']} port kernels of the "
                          f"{sum(launched.values())} launched")
 
@@ -2833,7 +2887,7 @@ def main(argv) -> int:
     single_shapes = phase_single(kzg_state, distinct)
     single_errs = phase_main_path_shapes(
         single_shapes, "single_shapes",
-        sorted({k for k, v in single_shapes.items() if v} | set(K7)))
+        sorted({k for k, v in single_shapes.items() if v} | set(K7_PATH)))
     wide_shapes, launches_wide = phase_wide(sets[:HEADLINE["distinct"]])
     wide_errs = phase_main_path_shapes(_new_shapes(wide_shapes, shapes), "wide_shapes", [])
     multi_shapes, launches_multi = phase_multi(sets, poisoned, distinct)

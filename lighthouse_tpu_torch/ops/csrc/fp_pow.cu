@@ -1,86 +1,126 @@
-// K7: a public-exponent power a^e, one launch a call, over Montgomery limbs
-// canonical in [0, p), in two modes:
-//   fp_pow   Fp  (..., 12, n)      limbs.pow_fixed, and so limbs.inv (e = p - 2)
+// K7: the Fp inverse and the public-exponent powers, one launch a call, over
+// Montgomery limbs canonical in [0, p), in three modes:
+//   fp_inv   Fp  (..., 12, n)      limbs.inv: a^-1 (0 for 0), a binary GCD
+//   fp_pow   Fp  (..., 12, n)      limbs.pow_fixed (no path calls it)
 //   fp2_pow  Fp2 (..., 2, 12, n)   tower.fp2_pow_fixed (fp2_sqrt_ratio's
 //                                  e = (p^2 - 9) / 16, 758 bits)
 //
 // No Pallas kernel computes these: the JAX package runs each power as one
 // lax.scan whose body (four squares and a table product) XLA fuses
-// (lighthouse_tpu/ops/bm/limbs.py:433 pow_fixed, scan at :462;
-// ops/bm/tower.py:165 fp2_pow_fixed, scan at :193). The port ran them as a
-// Python loop of one K1 or K2 launch a square and a product: 485 launches
-// for the Fp inverse, 946 for the Fp2 power.
+// (lighthouse_tpu/ops/bm/limbs.py:433 pow_fixed, scan at :462, and :466
+// inv = pow_fixed(a, p - 2); ops/bm/tower.py:165 fp2_pow_fixed, scan at
+// :193).
 //
-// What one call computes, per element, a 4-bit fixed window as ops/fused.py
-// pow_loop (the plain version): the table a^0 ... a^15 (14 products, a^2
-// as a product), then from the most significant digit d_0, acc = a^d_0 and
-// per further digit four squares and, where d != 0, one product by a^d.
-// Fp2 first splits the exponent at p: e = A p + B with B < p, and since
-// a^p = conj(a) for every a in Fp2 (the Frobenius map), a^e = conj(a)^A a^B,
-// one chain of squares for both (Straus): a window squares four times and
-// multiplies by a^dB and by conj(a^dA), the table's entry conjugated. For
+// --- fp_inv: Bernstein-Yang safegcd (divsteps), one lane an element.
+// a^-1 is the unique inverse (0 for 0), the value a^(p-2) takes, so the
+// plain version stays the power (ops/fused.py fp_inv_plain). The chain:
+// f = p, g = x = aR, delta = 1, and per divstep
+//   delta > 0 and g odd:  (delta, f, g) <- (1 - delta, g, (g - f) / 2)
+//   else:                 (delta, f, g) <- (1 + delta, f, (g + (g & 1) f) / 2)
+// in 37 batches of 30 (1,110 >= floor((49 * 381 + 57) / 17) = 1,101, the
+// proven bound for f^2 + 4 g^2 <= 5 2^762: g = 0 and f = +-1 after it, for
+// every x != 0; x = 0 keeps f = p). A batch's divsteps depend on delta and
+// the low 30 bits of f and g only: they run on one word each (divsteps)
+// and give the 2 x 2 matrix (u v; q r), |u| + |v|, |q| + |r| <= 2^30, that
+// takes (f, g) to (u f + v g, q f + r g) / 2^30 (update_fg, exact) and
+// (d, e) to the same mod p (update_de: the multiple of p that clears the
+// low 30 bits is added first; d, e stay in (-2p, p)). From d = 0, e = 1,
+// d ends as v_all 2^-1110 mod p, and f_end = (u_all p + v_all x) 2^-1110
+// gives x^-1 = f_end d mod p. f, g, d, e are 13 signed 30-bit limbs (limbs
+// 0-11 in [0, 2^30), limb 12 signed), so / 2^30 is a limb shift and every
+// step is one int64 multiply-add. The output a^-1 R = x^-1 R^2: d + 2p (in
+// (0, 3p), no sign) times R^3 mod p, or p - R^3 mod p where f_end = -1, by
+// one Montgomery product, whose REDC returns the canonical value (x = 0:
+// d = 0, so 0). Batches run in order: interleaving batch b's update_de with
+// batch b + 1's divsteps (independent) measured 0.059 ms at (12, 1), in
+// order 0.046; divsteps by selects 0.044, by masks (libsecp256k1's
+// constant-time form) 0.046 (PERF.md).
+// tests/test_torch_fp_inv.py replays this in Python integers, every word
+// width asserted.
+//
+// --- fp_pow: a 4-bit fixed window as ops/fused.py pow_loop (the plain
+// version), one lane an element: the table a^0 ... a^15 (14 products, a^2
+// as a product), then from the most significant digit d_0, acc = a^d_0
+// and per further digit four squares and, where d != 0, one product by a^d.
+//
+// --- fp2_pow: the same window, four lanes an element. The exponent is
+// split at p: e = A p + B with B < p, and since a^p = conj(a) in Fp2 (the
+// Frobenius map), a^e = conj(a)^A a^B on one chain of squares (Straus): a
+// window squares four times and multiplies by a^dB and by conj(a^dA). For
 // (p^2 - 9) / 16 that is 96 windows, 380 squares and 194 products (14 of
-// them the table's), where the plain 758-bit chain runs 757 squares and
-// 189 products. The digits come from a device buffer
-// the wrapper builds once per exponent and device (ops/fused.py
-// pow_digits, fp2_pow_digits: a byte a window, B's digit in the low
-// nibble, A's in the high one; a captured graph reads the buffer at
-// replay); the digits are the same for every element, so every branch on
-// them is uniform. An exponent below 16 takes the same table (the plain
-// loop's shorter chain gives the same canonical value), and below p the
-// same chain as the plain loop's.
+// them the table's). The digits come from a device buffer the wrapper
+// builds once per exponent and device (ops/fused.py pow_digits,
+// fp2_pow_digits: a byte a window, B's digit in the low nibble, A's in the
+// high one; a captured graph reads the buffer at replay); they are the same
+// for every element, so every branch on them is uniform. An exponent below
+// 16 takes the same table (the plain loop's shorter chain gives the same
+// canonical value).
 //
-// Design: the value's chain is latency (485 and 574 dependent products a
-// call at the paths' 1-256 elements), so each element's chain runs on one
-// lane (Fp) or one pair of lanes (Fp2), the accumulator in registers and
-// the table in shared memory, each product as K5's one-lane product (the
-// PTX carry chains of fp.cuh: lh::rows, then lh::redc_lane). A block is one
-// warp: 32 Fp elements or 16 Fp2 elements.
-//   Fp     square and product are one 12 x 12 product and one REDC.
-//   Fp2    lane r of a pair computes component r: the square as K2's,
-//          lane 0 (a0 + a1)(a0 + (p - a1)), lane 1 (a0 + a0) a1, one
-//          product each; the product by b schoolbook, lane 0
-//          a0 b0 + (p - a1) b1, lane 1 a0 b1 + a1 b0 (by a conjugate
-//          a0 b0 + a1 b1 and (p - a0) b1 + a1 b0), two products each
-//          summed into one 24-limb T; then one REDC each, and the pair
-//          swaps its components by 12 shuffles. Each lane forms its
-//          operands by selects on r, so neither lane waits on the other's
-//          branch. A pair's two lanes read the two components of a table
-//          entry at once: a pad limb per component puts them on different
-//          banks.
-// Bounds: every operand sum is below 2p < 2^382 (12 limbs) and every T is
-// below 4 p^2 < p 2^384 (2^384 / p > 9.8): the square's lane 0 below
-// 2p 2p, every other T below 2 p^2. So REDC's quotient stays below 2^384,
-// its final carry is 0, and u = (T + m p) / 2^384 < 2p: one subtraction to
-// canonical (lh::canonical). Every output is canonical, so it equals the
-// plain version's bit for bit. tests/test_torch_fp_pow.py replays this
-// arithmetic in Python integers and asserts each bound.
+// Lane k (0-3) of an element holds one component own = acc_h, and reads
+// component j = k & 1 of a table entry. h follows a layout that the
+// products toggle (uniformly): A, h = k >> 1; B, h = (k >> 1) ^ j.
+//   product  lane (h, j) computes one row, own b_j, with the sign folded
+//            into b: c0 = a0 b0 + a1 (p - b1), c1 = a0 b1 + a1 b0 (by a
+//            conjugate a1 b1 and a0 (p - b1)); the table holds b0, b1 and
+//            p - b1, so a lane only picks its word. Each lane's REDC gives
+//            a canonical part; the two lanes of component h ^ j (xor 3 in
+//            A, 1 in B) swap parts by 12 shuffles and add mod p, both
+//            getting the same canonical component. Lane k then holds
+//            component h ^ j: the other layout. No lane needs the other
+//            component, so no swap.
+//   square   lane k takes the other component from lane k ^ 2 (12
+//            shuffles; the other component in both layouts); h = 0
+//            computes c0 = (a0 + a1)(a0 + (p - a1)), h = 1 c1 = (a1 + a1)
+//            a0: one product each, the operand sums as PTX carry chains.
+//            The layout stays.
+// Each lane forms its operands by selects on h and its table word by its
+// address, so no lane waits on another's branch. A table entry's three
+// words of one element sit 104 words apart (8 mod 32): a warp's 8
+// elements read 24 distinct banks.
+// Bounds: every square operand is below 2p and T below 4 p^2; a product's
+// T = own b below p^2 (b <= p); so REDC's quotient stays below 2^384 and
+// u < 2p: one subtraction to canonical (lh::canonical); a part sum is below
+// 2p: one more. Every output is canonical, so it equals the plain
+// version's bit for bit. tests/test_torch_fp_pow.py replays the lanes in
+// Python integers and asserts each bound.
 //
-// Bound on an H100 (chip_smoke.py pow_work): the exponent's products and
-// squares, 288 and 222 multiply-adds each in Fp (Fp2 three and two Fp
-// products and two reductions), against 96 (Fp2 192) bytes an element:
-// bound by operations, far below a microsecond at the paths' sizes, where a
-// call is one chain: about 485 Fp products in series for the inverse.
+// Bound on an H100 (chip_smoke.py pow_work and WORK): the powers' chain's
+// products and squares, 288 and 222 multiply-adds each in Fp (Fp2 three and
+// two Fp products and two reductions); fp_inv's GCD, 37 batches of 132
+// products (update_fg 52, update_de 78, its quotient words 2) and the last
+// Montgomery product, 5,172 multiply-adds (the power p - 2 would need 22
+// times as many); 96 (Fp2 192) bytes an element: bound by operations, far
+// below a microsecond at the paths' sizes, where a call is one chain.
 //
-// Resources (ptxas, sm_90a, nvcc 12.9), 0 bytes of spills: Fp 66
-// registers and 24,576 B of static shared memory (the table, 32
-// elements), Fp2 110 registers and 26,624 B (16 elements, padded).
+// Resources (ptxas, sm_90a, nvcc 12.9; chip_smoke.py's env line), 0 bytes
+// of spills: fp_inv 92 registers and no shared memory; fp_pow 66 registers
+// and 24,576 B of static shared memory (the table, 32 elements); fp2_pow 74
+// registers and 19,968 B (8 elements, three words an entry, padded).
 //
-// Measured (graph-replay ms, NVIDIA H100 80GB HBM3, 700 W, both designs
-// in one call; PERF.md): fp_pow at (12, 1), e = p - 2: 0.577
-// (1.19 us a product in series); fp2_pow at (2, 2, 12, 64), e =
-// (p^2 - 9) / 16: the plain 758-bit chain 1.764, split at p 1.190, and
-// 1.185-1.208 at every path shape (m = 1 to 256, and 4096 elements): a
-// call is one chain, so its width does not show until the card is full.
+// Measured (graph-replay ms, NVIDIA H100 80GB HBM3, 700 W; PERF.md):
+// fp_inv 0.045 at (12, 1) and (12, 4096), where fp_pow at p - 2 takes 0.581;
+// fp2_pow 0.723-0.739 at every path shape (m = 1 to 256, and 4096
+// elements), where a pair of lanes an element took 1.196-1.217.
+// scripts/probe_k7.py times the steps in cycles: a four-lane product 2,462
+// where a pair's took 6,625, a square 2,429 (2,600), one Fp product 2,260;
+// a batch of 30 divsteps 987, update_fg 306, update_de 481, the whole
+// inverse about 85,000.
 #include "fp.cuh"
 
 namespace {
 
 constexpr int kEntries = 16;                 // the 4-bit window's table
 constexpr int kFpElems = 32;                 // Fp: a lane an element, a warp a block
-constexpr int kFp2Elems = 16;                // Fp2: a pair of lanes an element
-constexpr int kFp2Comp = 13 * kFp2Elems;     // words from component 0 to 1 (a pad limb)
-constexpr int kFp2Entry = 2 * kFp2Comp;      // words an Fp2 table entry
+constexpr int kFp2Lanes = 4;                 // Fp2: four lanes an element
+constexpr int kFp2Elems = 32 / kFp2Lanes;    // 8 elements a warp, a warp a block
+constexpr int kFp2Comp = lh::NL * kFp2Elems + 8;   // words from one component to the next
+constexpr int kFp2Entry = 3 * kFp2Comp;      // words an entry: b0, b1, p - b1
+constexpr int kInvElems = 32;                // fp_inv: a lane an element, a warp a block
+constexpr int kL30 = 13;                     // signed 30-bit limbs of f, g, d, e
+constexpr int kBatch = 30;                   // divsteps a batch
+constexpr int kBatches = 37;                 // 1,110 divsteps >= 1,101
+constexpr uint32_t kM30 = 0x3fffffffu;
+constexpr uint32_t kPInv30 = 0x00030003u;    // p^-1 mod 2^30
 
 // Limb j of R = 2^384 mod p, the Montgomery form of 1.
 __host__ __device__ constexpr uint32_t one_limb(int j) {
@@ -98,6 +138,54 @@ __host__ __device__ constexpr uint32_t one_limb(int j) {
        : 0x15f65ec3u;
 }
 
+// Limb j of R^3 mod p, and of p - R^3 mod p (fp_inv's last product).
+__host__ __device__ constexpr uint32_t r3_limb(int j) {
+  return j == 0 ? 0xd94ca1e0u
+       : j == 1 ? 0xed48ac6bu
+       : j == 2 ? 0x03a7adf8u
+       : j == 3 ? 0x315f831eu
+       : j == 4 ? 0x615e29ddu
+       : j == 5 ? 0x9a53352au
+       : j == 6 ? 0x921e1761u
+       : j == 7 ? 0x34c04e5eu
+       : j == 8 ? 0x65724728u
+       : j == 9 ? 0x2512d435u
+       : j == 10 ? 0x91755d4du
+       : 0x0aa63460u;
+}
+
+__host__ __device__ constexpr uint32_t neg_r3_limb(int j) {
+  return j == 0 ? 0x26b308cbu
+       : j == 1 ? 0xccb65394u
+       : j == 2 ? 0xadac5206u
+       : j == 3 ? 0xed4c7ce0u
+       : j == 4 ? 0x9552cc46u
+       : j == 5 ? 0xccdd9d76u
+       : j == 6 ? 0x6166fb5du
+       : j == 7 ? 0x2fb6fd26u
+       : j == 8 ? 0xddd965afu
+       : j == 9 ? 0x2608d380u
+       : j == 10 ? 0xa80a894du
+       : 0x0f5add89u;
+}
+
+// Limb i of p as 13 signed 30-bit limbs.
+__host__ __device__ constexpr int32_t p30(int i) {
+  return i == 0 ? 0x3fffaaab
+       : i == 1 ? 0x27fbffff
+       : i == 2 ? 0x153ffffb
+       : i == 3 ? 0x2affffac
+       : i == 4 ? 0x30f6241e
+       : i == 5 ? 0x034a83da
+       : i == 6 ? 0x112bf673
+       : i == 7 ? 0x12e13ce1
+       : i == 8 ? 0x2cd76477
+       : i == 9 ? 0x1ed90d2e
+       : i == 10 ? 0x29a4b1ba
+       : i == 11 ? 0x3a8e5ff9
+       : 0x001a0111;
+}
+
 // out = a b 2^-384 mod p, canonical, for a b < p 2^384; out may alias a or b.
 __device__ __forceinline__ void mont_mul(const uint32_t* a, const uint32_t* b, uint32_t* out) {
   uint32_t t[lh::NW + 1];
@@ -105,7 +193,224 @@ __device__ __forceinline__ void mont_mul(const uint32_t* a, const uint32_t* b, u
   lh::redc_lane(t, out);
 }
 
-// --- Fp: a lane an element ---------------------------------------------------
+// --- 12-limb carry chains (PTX; C for a host compiler) ---------------------------
+
+#if defined(__CUDA_ARCH__)
+// x += y; the caller's bound leaves no carry out.
+__device__ __forceinline__ void add_to(uint32_t* x, const uint32_t* y) {
+  asm("add.cc.u32 %0, %0, %12;"
+      "addc.cc.u32 %1, %1, %13;"
+      "addc.cc.u32 %2, %2, %14;"
+      "addc.cc.u32 %3, %3, %15;"
+      "addc.cc.u32 %4, %4, %16;"
+      "addc.cc.u32 %5, %5, %17;"
+      "addc.cc.u32 %6, %6, %18;"
+      "addc.cc.u32 %7, %7, %19;"
+      "addc.cc.u32 %8, %8, %20;"
+      "addc.cc.u32 %9, %9, %21;"
+      "addc.cc.u32 %10, %10, %22;"
+      "addc.u32 %11, %11, %23;"
+      : "+r"(x[0]), "+r"(x[1]), "+r"(x[2]), "+r"(x[3]), "+r"(x[4]), "+r"(x[5]), "+r"(x[6]), "+r"(x[7]), "+r"(x[8]), "+r"(x[9]), "+r"(x[10]), "+r"(x[11])
+      : "r"(y[0]), "r"(y[1]), "r"(y[2]), "r"(y[3]), "r"(y[4]), "r"(y[5]), "r"(y[6]), "r"(y[7]), "r"(y[8]), "r"(y[9]), "r"(y[10]), "r"(y[11]));
+}
+
+// x += p + 1 mod 2^384: with x = ~y, p - y.
+__device__ __forceinline__ void add_p1_to(uint32_t* x) {
+  asm("add.cc.u32 %0, %0, 0xffffaaacU;"
+      "addc.cc.u32 %1, %1, 0xb9feffffU;"
+      "addc.cc.u32 %2, %2, 0xb153ffffU;"
+      "addc.cc.u32 %3, %3, 0x1eabfffeU;"
+      "addc.cc.u32 %4, %4, 0xf6b0f624U;"
+      "addc.cc.u32 %5, %5, 0x6730d2a0U;"
+      "addc.cc.u32 %6, %6, 0xf38512bfU;"
+      "addc.cc.u32 %7, %7, 0x64774b84U;"
+      "addc.cc.u32 %8, %8, 0x434bacd7U;"
+      "addc.cc.u32 %9, %9, 0x4b1ba7b6U;"
+      "addc.cc.u32 %10, %10, 0x397fe69aU;"
+      "addc.u32 %11, %11, 0x1a0111eaU;"
+      : "+r"(x[0]), "+r"(x[1]), "+r"(x[2]), "+r"(x[3]), "+r"(x[4]), "+r"(x[5]), "+r"(x[6]), "+r"(x[7]), "+r"(x[8]), "+r"(x[9]), "+r"(x[10]), "+r"(x[11]));
+}
+
+// d = x - p mod 2^384 -> all ones iff x < p (the borrow out).
+__device__ __forceinline__ uint32_t sub_p(const uint32_t* x, uint32_t* d) {
+  uint32_t m;
+  asm("sub.cc.u32 %0, %13, 0xffffaaabU;"
+      "subc.cc.u32 %1, %14, 0xb9feffffU;"
+      "subc.cc.u32 %2, %15, 0xb153ffffU;"
+      "subc.cc.u32 %3, %16, 0x1eabfffeU;"
+      "subc.cc.u32 %4, %17, 0xf6b0f624U;"
+      "subc.cc.u32 %5, %18, 0x6730d2a0U;"
+      "subc.cc.u32 %6, %19, 0xf38512bfU;"
+      "subc.cc.u32 %7, %20, 0x64774b84U;"
+      "subc.cc.u32 %8, %21, 0x434bacd7U;"
+      "subc.cc.u32 %9, %22, 0x4b1ba7b6U;"
+      "subc.cc.u32 %10, %23, 0x397fe69aU;"
+      "subc.cc.u32 %11, %24, 0x1a0111eaU;"
+      "subc.u32 %12, %25, %25;"
+      : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3]), "=r"(d[4]), "=r"(d[5]), "=r"(d[6]), "=r"(d[7]), "=r"(d[8]), "=r"(d[9]), "=r"(d[10]), "=r"(d[11]), "=r"(m)
+      : "r"(x[0]), "r"(x[1]), "r"(x[2]), "r"(x[3]), "r"(x[4]), "r"(x[5]), "r"(x[6]), "r"(x[7]), "r"(x[8]), "r"(x[9]), "r"(x[10]), "r"(x[11]), "r"(0u));
+  return m;
+}
+#else
+__device__ __forceinline__ void add_to(uint32_t* x, const uint32_t* y) {
+  uint64_t c = 0;
+  for (int j = 0; j < lh::NL; ++j) {
+    c += (uint64_t)x[j] + y[j];
+    x[j] = (uint32_t)c;
+    c >>= 32;
+  }
+}
+
+__device__ __forceinline__ void add_p1_to(uint32_t* x) {
+  uint64_t c = 1;
+  for (int j = 0; j < lh::NL; ++j) {
+    c += (uint64_t)x[j] + lh::p_limb(j);
+    x[j] = (uint32_t)c;
+    c >>= 32;
+  }
+}
+
+__device__ __forceinline__ uint32_t sub_p(const uint32_t* x, uint32_t* d) {
+  long long br = 0;
+  for (int j = 0; j < lh::NL; ++j) {
+    br += (long long)x[j] - lh::p_limb(j);
+    d[j] = (uint32_t)br;
+    br >>= 32;
+  }
+  return (uint32_t)br;
+}
+#endif
+
+// --- fp_inv: a lane an element -------------------------------------------------------
+
+struct Trans {
+  int32_t u, v, q, r;
+};
+
+// kBatch divsteps from delta on the low words of f and g -> the new delta
+// and t, with (u f0 + v g0, q f0 + r g0) = 2^kBatch (f, g) in the low bits.
+// u, v, q, r are signed values in [-2^30, 2^30] held mod 2^32. Each step
+// forms g + f and g - f (and q +- u, r +- v) beside each other and picks by
+// selects: a step's chain is an add, two selects and a shift.
+__device__ __forceinline__ int divsteps(int delta, uint32_t f, uint32_t g, Trans& t) {
+  uint32_t u = 1, v = 0, q = 0, r = 1;
+#pragma unroll
+  for (int i = 0; i < kBatch; ++i) {
+    const bool odd = g & 1u, pos = delta > 0, swap = odd && pos;
+    const uint32_t gn = odd ? (pos ? g - f : g + f) : g;
+    const uint32_t qn = odd ? (pos ? q - u : q + u) : q;
+    const uint32_t rn = odd ? (pos ? r - v : r + v) : r;
+    f = swap ? g : f;
+    u = (swap ? q : u) << 1;
+    v = (swap ? r : v) << 1;
+    delta = swap ? 1 - delta : 1 + delta;
+    g = gn >> 1;
+    q = qn;
+    r = rn;
+  }
+  t = {(int32_t)u, (int32_t)v, (int32_t)q, (int32_t)r};
+  return delta;
+}
+
+// (f, g) <- (u f + v g, q f + r g) / 2^30, exact.
+__device__ __forceinline__ void update_fg(int32_t* f, int32_t* g, const Trans& t) {
+  int64_t cf = (int64_t)t.u * f[0] + (int64_t)t.v * g[0];
+  int64_t cg = (int64_t)t.q * f[0] + (int64_t)t.r * g[0];
+  cf >>= 30;
+  cg >>= 30;
+#pragma unroll
+  for (int i = 1; i < kL30; ++i) {
+    cf += (int64_t)t.u * f[i] + (int64_t)t.v * g[i];
+    cg += (int64_t)t.q * f[i] + (int64_t)t.r * g[i];
+    f[i - 1] = (int32_t)((uint32_t)cf & kM30);
+    g[i - 1] = (int32_t)((uint32_t)cg & kM30);
+    cf >>= 30;
+    cg >>= 30;
+  }
+  f[kL30 - 1] = (int32_t)cf;
+  g[kL30 - 1] = (int32_t)cg;
+}
+
+// (d, e) <- (u d + v e, q d + r e) / 2^30 mod p, in (-2p, p): first the
+// multiples md, me of p (u, q where d < 0, v, r where e < 0, less the
+// residue that clears the low 30 bits).
+__device__ __forceinline__ void update_de(int32_t* d, int32_t* e, const Trans& t) {
+  const int32_t sd = d[kL30 - 1] >> 31, se = e[kL30 - 1] >> 31;
+  int32_t md = (t.u & sd) + (t.v & se);
+  int32_t me = (t.q & sd) + (t.r & se);
+  int64_t cd = (int64_t)t.u * d[0] + (int64_t)t.v * e[0];
+  int64_t ce = (int64_t)t.q * d[0] + (int64_t)t.r * e[0];
+  md -= (int32_t)((kPInv30 * (uint32_t)cd + (uint32_t)md) & kM30);
+  me -= (int32_t)((kPInv30 * (uint32_t)ce + (uint32_t)me) & kM30);
+  cd += (int64_t)p30(0) * md;
+  ce += (int64_t)p30(0) * me;
+  cd >>= 30;
+  ce >>= 30;
+#pragma unroll
+  for (int i = 1; i < kL30; ++i) {
+    cd += (int64_t)t.u * d[i] + (int64_t)t.v * e[i] + (int64_t)p30(i) * md;
+    ce += (int64_t)t.q * d[i] + (int64_t)t.r * e[i] + (int64_t)p30(i) * me;
+    d[i - 1] = (int32_t)((uint32_t)cd & kM30);
+    e[i - 1] = (int32_t)((uint32_t)ce & kM30);
+    cd >>= 30;
+    ce >>= 30;
+  }
+  d[kL30 - 1] = (int32_t)cd;
+  e[kL30 - 1] = (int32_t)ce;
+}
+
+// x <- x^-1 R^2 mod p (0 for 0): with x = aR, a^-1 R.
+__device__ __forceinline__ void inv_lane(uint32_t* x) {
+  int32_t f[kL30], g[kL30], d[kL30], e[kL30];
+#pragma unroll
+  for (int i = 0; i < kL30; ++i) {
+    const int w = 30 * i / 32, s = 30 * i % 32;
+    const uint64_t pair = (uint64_t)(w + 1 < lh::NL ? x[w + 1] : 0u) << 32 | x[w];
+    g[i] = (int32_t)((uint32_t)(pair >> s) & kM30);
+    f[i] = p30(i);
+    d[i] = 0;
+    e[i] = i == 0;
+  }
+  int delta = 1;
+#pragma unroll 1
+  for (int b = 0; b < kBatches; ++b) {
+    Trans t;
+    delta = divsteps(delta, (uint32_t)f[0], (uint32_t)g[0], t);
+    update_fg(f, g, t);
+    update_de(d, e, t);
+  }
+  // d + 2p in (0, 3p) as 12 words, then (d + 2p) (+-R^3) R^-1 = x^-1 R^2.
+  int64_t c = 0;
+#pragma unroll
+  for (int i = 0; i < kL30; ++i) {
+    c += (int64_t)d[i] + 2 * (int64_t)p30(i);
+    d[i] = i + 1 < kL30 ? (int32_t)((uint32_t)c & kM30) : (int32_t)c;
+    c >>= 30;
+  }
+  const bool neg = f[kL30 - 1] < 0;
+  uint32_t k[lh::NL];
+#pragma unroll
+  for (int j = 0; j < lh::NL; ++j) {
+    x[j] = ((uint32_t)d[j] >> (2 * j)) | ((uint32_t)d[j + 1] << (30 - 2 * j));
+    k[j] = neg ? neg_r3_limb(j) : r3_limb(j);
+  }
+  mont_mul(x, k, x);
+}
+
+__global__ void __launch_bounds__(kInvElems)
+fp_inv_kernel(uint32_t* __restrict__ out, const uint32_t* __restrict__ a, long long total,
+              long long n) {
+  const long long gi = (long long)blockIdx.x * kInvElems + threadIdx.x;
+  if (gi >= total) return;
+  const long long row = gi / n;
+  const long long base = row * lh::NL * n + (gi - row * n);
+  uint32_t x[lh::NL];
+  lh::load(x, a + base, n);
+  inv_lane(x);
+  lh::store(out + base, x, n);
+}
+
+// --- fp_pow: a lane an element ---------------------------------------------------
 
 __global__ void __launch_bounds__(kFpElems)
 fp_pow_kernel(uint32_t* __restrict__ out, const uint32_t* __restrict__ a,
@@ -148,148 +453,110 @@ fp_pow_kernel(uint32_t* __restrict__ out, const uint32_t* __restrict__ a,
   lh::store(out + base, acc, n);
 }
 
-// --- Fp2: a pair of lanes an element -------------------------------------------
+// --- fp2_pow: four lanes an element ------------------------------------------------
 
-// The pair's components after lane r computed c = component r.
-__device__ __forceinline__ void swap_in(const uint32_t* c, int r, uint32_t* a0, uint32_t* a1) {
+// The component lane k holds in layout A (0) or B (1).
+__device__ __forceinline__ int held(int k, int layout) { return (k >> 1) ^ (k & layout & 1); }
+
+// This lane's word of a table entry (entry: the entry's element column):
+// b0 from (h 0, j 0), b1 from (h 1, j 0), p - b1 from (h 1, j 1).
+__device__ __forceinline__ void fp2_put(uint32_t* entry, const uint32_t* own, int k, int layout) {
+  const int j = k & 1, h = held(k, layout);
+  uint32_t v[lh::NL];
+#pragma unroll
+  for (int l = 0; l < lh::NL; ++l) v[l] = ~own[l];
+  add_p1_to(v);
+  if (h || !j) {
+#pragma unroll
+    for (int l = 0; l < lh::NL; ++l)
+      entry[(h + j) * kFp2Comp + l * kFp2Elems] = h && j ? v[l] : own[l];
+  }
+}
+
+// acc <- acc b, b the table entry (conj: its conjugate); the layout toggles.
+__device__ __forceinline__ void fp2_mul_lanes(uint32_t* own, const uint32_t* entry, int k,
+                                              int& layout, bool conj) {
+  const int j = k & 1, h = held(k, layout);
+  const int comp = j ? 1 + (h ^ (int)conj) : 0;
+  uint32_t b[lh::NL], r[lh::NL], o[lh::NL], d[lh::NL];
+#pragma unroll
+  for (int l = 0; l < lh::NL; ++l) b[l] = entry[comp * kFp2Comp + l * kFp2Elems];
+  mont_mul(own, b, r);
+  const int partner = layout ? 1 : 3;
+#pragma unroll
+  for (int l = 0; l < lh::NL; ++l) o[l] = __shfl_xor_sync(0xffffffffu, r[l], partner);
+  add_to(r, o);
+  const uint32_t lt = sub_p(r, d);
+#pragma unroll
+  for (int l = 0; l < lh::NL; ++l) own[l] = lt ? r[l] : d[l];
+  layout ^= 1;
+}
+
+// acc <- acc^2: h = 0 c0 = (a0 + a1)(a0 + (p - a1)), h = 1 c1 = (a1 + a1) a0.
+__device__ __forceinline__ void fp2_sqr_lanes(uint32_t* own, int k, int layout) {
+  const int h = held(k, layout);
+  uint32_t o[lh::NL], x[lh::NL], y[lh::NL];
 #pragma unroll
   for (int l = 0; l < lh::NL; ++l) {
-    const uint32_t o = __shfl_xor_sync(0xffffffffu, c[l], 1);
-    a0[l] = r ? o : c[l];
-    a1[l] = r ? c[l] : o;
+    o[l] = __shfl_xor_sync(0xffffffffu, own[l], 2);
+    x[l] = h ? own[l] : o[l];
+    y[l] = ~o[l];
   }
+  add_to(x, own);
+  add_p1_to(y);
+  add_to(y, own);
+#pragma unroll
+  for (int l = 0; l < lh::NL; ++l) y[l] = h ? o[l] : y[l];
+  mont_mul(x, y, own);
 }
 
-// out = p - a for a <= p.
-__device__ __forceinline__ void p_minus(const uint32_t* a, uint32_t* out) {
-  long long br = 0;
-#pragma unroll
-  for (int j = 0; j < lh::NL; ++j) {
-    br += (long long)lh::p_limb(j) - a[j];
-    out[j] = (uint32_t)br;
-    br >>= 32;
-  }
-}
-
-// out = a + b, unreduced (a + b < 2^384).
-__device__ __forceinline__ void add_raw(const uint32_t* a, const uint32_t* b, uint32_t* out) {
-  uint64_t c = 0;
-#pragma unroll
-  for (int j = 0; j < lh::NL; ++j) {
-    c += (uint64_t)a[j] + b[j];
-    out[j] = (uint32_t)c;
-    c >>= 32;
-  }
-}
-
-// (a0, a1) = (a0, a1)^2: lane 0 T = (a0 + a1)(a0 + (p - a1)) < 4 p^2,
-// lane 1 T = (a0 + a0) a1 < 2 p^2.
-__device__ __forceinline__ void fp2_sqr_pair(uint32_t* a0, uint32_t* a1, int r) {
-  uint32_t x[lh::NL], y[lh::NL], c[lh::NL];
-  p_minus(a1, y);
-  add_raw(a0, y, y);
-#pragma unroll
-  for (int l = 0; l < lh::NL; ++l) {
-    c[l] = r ? a0[l] : a1[l];
-    y[l] = r ? a1[l] : y[l];
-  }
-  add_raw(a0, c, x);
-  mont_mul(x, y, c);
-  swap_in(c, r, a0, a1);
-}
-
-// (a0, a1) = (a0, a1) b, b = (b0, b1) or, with conj, its conjugate
-// (b0, -b1); b's component r at own, the other at other (limb stride
-// kFp2Elems). T = x1 own + x2 other, each below 2 p^2:
-//            lane 0                     lane 1
-//   b        a0 b0 + (p - a1) b1        a0 b1 + a1 b0
-//   conj b   a0 b0 + a1 b1              (p - a0) b1 + a1 b0
-__device__ __forceinline__ void fp2_mul_pair(uint32_t* a0, uint32_t* a1, const uint32_t* own,
-                                             const uint32_t* other, int r, bool conj) {
-  uint32_t x[lh::NL], y[lh::NL], z[lh::NL], t[lh::NW + 1], u[lh::NW + 1];
-#pragma unroll
-  for (int l = 0; l < lh::NL; ++l) {
-    z[l] = r ? a0[l] : a1[l];
-    y[l] = own[l * kFp2Elems];
-  }
-  p_minus(z, z);
-#pragma unroll
-  for (int l = 0; l < lh::NL; ++l) x[l] = conj && r ? z[l] : a0[l];
-  lh::rows<lh::NL>(x, y, t);
-#pragma unroll
-  for (int l = 0; l < lh::NL; ++l) {
-    x[l] = r || conj ? a1[l] : z[l];
-    y[l] = other[l * kFp2Elems];
-  }
-  lh::rows<lh::NL>(x, y, u);
-  uint64_t c = 0;
-#pragma unroll
-  for (int j = 0; j < lh::NW; ++j) {
-    c += (uint64_t)t[j] + u[j];
-    t[j] = (uint32_t)c;
-    c >>= 32;
-  }
-  lh::redc_lane(t, x);
-  swap_in(x, r, a0, a1);
-}
-
-__global__ void __launch_bounds__(2 * kFp2Elems)
+__global__ void __launch_bounds__(32)
 fp2_pow_kernel(uint32_t* __restrict__ out, const uint32_t* __restrict__ a,
                const uint8_t* __restrict__ digits, int n_digits, long long total, long long n) {
   __shared__ uint32_t table[kEntries * kFp2Entry];
-  const int e = threadIdx.x >> 1, r = threadIdx.x & 1;
+  const int e = threadIdx.x / kFp2Lanes, k = threadIdx.x % kFp2Lanes;
   const long long g0 = (long long)blockIdx.x * kFp2Elems + e;
   // A lane past the end runs the last element's chain and stores nothing:
-  // the pair's shuffles need every lane of the warp.
+  // the shuffles need every lane of the warp.
   const long long g = g0 < total ? g0 : total - 1;
   const long long row = g / n;
   const long long base = row * 2 * lh::NL * n + (g - row * n);
-  uint32_t* own = table + r * kFp2Comp + e;
-  const uint32_t* other = table + (1 - r) * kFp2Comp + e;
-  uint32_t a0[lh::NL], a1[lh::NL];
-  lh::load(a0, a + base, n);
-  lh::load(a1, a + base + lh::NL * n, n);
+  uint32_t* col = table + e;
+  int layout = 0;
+  uint32_t own[lh::NL];
+  lh::load(own, a + base + held(k, layout) * lh::NL * n, n);
+  if (k < 3) {
 #pragma unroll
-  for (int l = 0; l < lh::NL; ++l) {
-    own[l * kFp2Elems] = r ? 0u : one_limb(l);
-    own[kFp2Entry + l * kFp2Elems] = r ? a1[l] : a0[l];
+    for (int l = 0; l < lh::NL; ++l) col[k * kFp2Comp + l * kFp2Elems] = k ? 0u : one_limb(l);
   }
+  fp2_put(col + kFp2Entry, own, k, layout);
   __syncwarp();
 #pragma unroll 1
-  for (int k = 2; k < kEntries; ++k) {
-    fp2_mul_pair(a0, a1, own + kFp2Entry, other + kFp2Entry, r, false);
-#pragma unroll
-    for (int l = 0; l < lh::NL; ++l) own[k * kFp2Entry + l * kFp2Elems] = r ? a1[l] : a0[l];
+  for (int i = 2; i < kEntries; ++i) {
+    fp2_mul_lanes(own, col + kFp2Entry, k, layout, false);
+    fp2_put(col + i * kFp2Entry, own, k, layout);
   }
   __syncwarp();
   // Window w's byte holds B's digit (low nibble) and A's (high): acc =
-  // acc^16 a^dB conj(a)^dA, conj(a)^k = conj(a^k) being table entry k
-  // conjugated. The first window loads a^dB.
+  // acc^16 a^dB conj(a)^dA, conj(a)^i = conj(a^i) being entry i
+  // conjugated. The first window loads a^dB, in layout A.
+  layout = 0;
   const int b0 = __ldg(digits) & 15;
 #pragma unroll
-  for (int l = 0; l < lh::NL; ++l) {
-    a0[l] = table[b0 * kFp2Entry + l * kFp2Elems + e];
-    a1[l] = table[b0 * kFp2Entry + kFp2Comp + l * kFp2Elems + e];
-  }
+  for (int l = 0; l < lh::NL; ++l)
+    own[l] = col[b0 * kFp2Entry + held(k, layout) * kFp2Comp + l * kFp2Elems];
 #pragma unroll 1
   for (int w = 0; w < n_digits; ++w) {
     const int d = __ldg(digits + w);
     if (w > 0) {
 #pragma unroll 1
-      for (int s = 0; s < 4; ++s) fp2_sqr_pair(a0, a1, r);
+      for (int s = 0; s < 4; ++s) fp2_sqr_lanes(own, k, layout);
+      if (d & 15) fp2_mul_lanes(own, col + (d & 15) * kFp2Entry, k, layout, false);
     }
-#pragma unroll 1
-    for (int h = w > 0 ? 0 : 1; h < 2; ++h) {
-      const int k = h ? d >> 4 : d & 15;
-      if (k != 0) fp2_mul_pair(a0, a1, own + k * kFp2Entry, other + k * kFp2Entry, r, h);
-    }
+    if (d >> 4) fp2_mul_lanes(own, col + (d >> 4) * kFp2Entry, k, layout, true);
   }
-  if (g0 < total) {
-    uint32_t c[lh::NL];
-#pragma unroll
-    for (int l = 0; l < lh::NL; ++l) c[l] = r ? a1[l] : a0[l];
-    lh::store(out + base + r * lh::NL * n, c, n);
-  }
+  if (g0 < total && !(k & 1))
+    lh::store(out + base + held(k, layout) * lh::NL * n, own, n);
 }
 
 __global__ void empty_kernel() {}
@@ -304,12 +571,19 @@ int launch(void* out, const void* a, const void* digits, long long n_digits, lon
   if (n_digits < 1 || n_digits > (1 << 20) || rows < 1 || n < 1) return (int)cudaErrorInvalidValue;
   const int per_block = FP2 ? kFp2Elems : kFpElems;
   auto kernel = FP2 ? fp2_pow_kernel : fp_pow_kernel;
-  kernel<<<blocks(rows, n, per_block), FP2 ? 2 * kFp2Elems : kFpElems, 0, (cudaStream_t)stream>>>(
+  kernel<<<blocks(rows, n, per_block), 32, 0, (cudaStream_t)stream>>>(
       (uint32_t*)out, (const uint32_t*)a, (const uint8_t*)digits, (int)n_digits, rows * n, n);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
+
+extern "C" int lh_fp_inv(void* out, const void* a, long long rows, long long n, void* stream) {
+  if (rows < 1 || n < 1) return (int)cudaErrorInvalidValue;
+  fp_inv_kernel<<<blocks(rows, n, kInvElems), kInvElems, 0, (cudaStream_t)stream>>>(
+      (uint32_t*)out, (const uint32_t*)a, rows * n, n);
+  return (int)cudaGetLastError();
+}
 
 extern "C" int lh_fp_pow(void* out, const void* a, const void* digits, long long n_digits,
                          long long rows, long long n, void* stream) {
@@ -321,9 +595,15 @@ extern "C" int lh_fp2_pow(void* out, const void* a, const void* digits, long lon
   return launch<true>(out, a, digits, n_digits, rows, n, stream);
 }
 
-// Empty kernels on lh_fp_pow's and lh_fp2_pow's grids for (rows, n): the
-// launch floors K7 is timed against (chip_smoke.py floor_ms). Not kernels
-// of the port.
+// Empty kernels on lh_fp_inv's, lh_fp_pow's and lh_fp2_pow's grids for
+// (rows, n): the launch floors K7 is timed against (chip_smoke.py floor_ms).
+// Not kernels of the port.
+extern "C" int lh_fp_inv_empty(void* out, long long rows, long long n, void* stream) {
+  (void)out;
+  empty_kernel<<<blocks(rows, n, kInvElems), kInvElems, 0, (cudaStream_t)stream>>>();
+  return (int)cudaGetLastError();
+}
+
 extern "C" int lh_fp_pow_empty(void* out, long long rows, long long n, void* stream) {
   (void)out;
   empty_kernel<<<blocks(rows, n, kFpElems), kFpElems, 0, (cudaStream_t)stream>>>();
@@ -332,6 +612,6 @@ extern "C" int lh_fp_pow_empty(void* out, long long rows, long long n, void* str
 
 extern "C" int lh_fp2_pow_empty(void* out, long long rows, long long n, void* stream) {
   (void)out;
-  empty_kernel<<<blocks(rows, n, kFp2Elems), 2 * kFp2Elems, 0, (cudaStream_t)stream>>>();
+  empty_kernel<<<blocks(rows, n, kFp2Elems), 32, 0, (cudaStream_t)stream>>>();
   return (int)cudaGetLastError();
 }

@@ -20,10 +20,12 @@ XLA field/tower products they fuse, ``ops/limbs.py`` / ``ops/tower.py``
                              csrc/curve_op.cu  no Pallas counterpart: the Miller-loop steps
                                                XLA fuses (ops/bm/pairing.py:24 _dbl_step,
                                                :63 _add_step), on K5's engine
-    K7  fp_pow / fp2_pow     csrc/fp_pow.cu    no Pallas counterpart: the public-exponent
-                                               powers XLA fuses into one lax.scan
-                                               (ops/bm/limbs.py:433 pow_fixed, scan at :462;
-                                               ops/bm/tower.py:165 fp2_pow_fixed, scan at :193)
+    K7  fp_inv / fp_pow / fp2_pow
+                             csrc/fp_pow.cu    no Pallas counterpart: the Fp inverse and the
+                                               public-exponent powers XLA fuses into one
+                                               lax.scan (ops/bm/limbs.py:466 inv, :433
+                                               pow_fixed, scan at :462; ops/bm/tower.py:165
+                                               fp2_pow_fixed, scan at :193)
 
 Representation (one for the whole port): an Fp element is 12 little-endian
 32-bit limbs of its Montgomery form x * 2^384 mod p, canonical in [0, p),
@@ -72,12 +74,13 @@ units (lanes or pairs of lanes) of a block, with intermediates in shared
 memory. K6 runs a Miller step's G2 doubling or addition and its line at P
 as three levels of the same schedule: 10,368 and 14,400 multiply-adds a
 pair against 1,008 and 1,296 bytes, bound by operations. K7 runs a whole
-4-bit fixed-window power a call (the Fp inverse: 381 squares and 104
-products in series; the Fp2 power with its exponent split at p, e = A p +
-B, a^e = conj(a)^A a^B on one chain of squares), an element's chain on
-one lane (Fp) or a pair of lanes (Fp2), its table in shared memory: bound
+chain a call: the Fp inverse as a binary GCD (1,110 divsteps in batches of
+30, one lane an element, one Montgomery product at the end), a 4-bit
+fixed-window power (Fp: one lane an element; Fp2, its exponent split at p,
+e = A p + B, a^e = conj(a)^A a^B on one chain of squares: four lanes an
+element, one Fp product a lane a step), the table in shared memory: bound
 by operations, but at the paths' 1-256 elements one chain of dependent
-products.
+steps.
 """
 
 import ctypes
@@ -99,7 +102,7 @@ launches = {
     "fp12_sqr": 0, "fp12_mul": 0, "fp12_line": 0,
     "fp_add": 0, "fp_sub": 0, "fp_neg": 0, "fp_mul_small": 0,
     "g1_add": 0, "g1_double": 0, "g2_add": 0, "g2_double": 0,
-    "miller_dbl": 0, "miller_add": 0, "fp_pow": 0, "fp2_pow": 0,
+    "miller_dbl": 0, "miller_add": 0, "fp_inv": 0, "fp_pow": 0, "fp2_pow": 0,
 }
 
 
@@ -952,7 +955,12 @@ def fp2_pow_plain(a, exponent: int):
     return pow_loop(a, exponent, tower.consts(a.device).fp2_one, fp2_mul_plain, fp2_sqr_plain)
 
 
-PLAIN.update(fp_pow=fp_pow_plain, fp2_pow=fp2_pow_plain)
+def fp_inv_plain(a):
+    """a^-1 as a^(p - 2) (0 for 0): K7's binary GCD computes the same value."""
+    return fp_pow_plain(a, P - 2)
+
+
+PLAIN.update(fp_inv=fp_inv_plain, fp_pow=fp_pow_plain, fp2_pow=fp2_pow_plain)
 
 # --------------------------------------------------------------------------
 # Wrappers
@@ -983,7 +991,8 @@ _KERNELS = {
     # K6 (the same library) launches through _run_miller.
     "miller_dbl": ("curve_op", "lh_miller_dbl", ("g2", "fp", "fp", "fp")),
     "miller_add": ("curve_op", "lh_miller_add", ("g2", "g2", "fp", "fp", "fp")),
-    # K7 launches through _run_pow.
+    # K7: the inverse launches through _run, the powers through _run_pow.
+    "fp_inv": ("fp_pow", "lh_fp_inv", ("fp",)),
     "fp_pow": ("fp_pow", "lh_fp_pow", ("fp",)),
     "fp2_pow": ("fp_pow", "lh_fp2_pow", ("fp2",)),
 }
@@ -1444,6 +1453,11 @@ def _run_pow(name, a, exponent):
     return out
 
 
+def fp_inv(a):
+    """K7: a^-1 on (..., 12, n) (0 for 0), a binary GCD, one launch."""
+    return _run("fp_inv", a)
+
+
 def fp_pow(a, exponent: int):
     """K7: a^exponent on (..., 12, n), a public exponent, one launch."""
     return _run_pow("fp_pow", a, exponent)
@@ -1459,5 +1473,6 @@ WRAPPERS = {
     "fp12_sqr": fp12_sqr, "fp12_mul": fp12_mul, "fp12_line": fp12_mul_line,
     "fp_add": fp_add, "fp_sub": fp_sub, "fp_neg": fp_neg, "fp_mul_small": fp_mul_small,
     "g1_add": g1_add, "g1_double": g1_double, "g2_add": g2_add, "g2_double": g2_double,
-    "miller_dbl": miller_dbl, "miller_add": miller_add, "fp_pow": fp_pow, "fp2_pow": fp2_pow,
+    "miller_dbl": miller_dbl, "miller_add": miller_add, "fp_inv": fp_inv, "fp_pow": fp_pow,
+    "fp2_pow": fp2_pow,
 }

@@ -10,8 +10,9 @@ p (``convert.to_ints``).
 
 The products are the K1 kernel (``fused.fp_mul``); additions, subtractions,
 negations and small multiples are the K4 kernel (``fused.fp_add`` ...),
-whose operands may broadcast; a public-exponent power (and so the inverse)
-is the K7 kernel (``fused.fp_pow``). All return canonical values.
+whose operands may broadcast; the inverse and a public-exponent power are
+the K7 kernel (``fused.fp_inv``, ``fused.fp_pow``). All return canonical
+values.
 """
 
 from functools import lru_cache
@@ -171,5 +172,6 @@ def pow_fixed(a, exponent: int):
 
 
 def inv(a):
-    """a^(p-2); zero maps to zero."""
-    return pow_fixed(a, P - 2)
+    """a^-1, the value a^(p-2) takes (zero maps to zero): K7's binary GCD, one
+    launch (fused.fp_inv)."""
+    return fused.fp_inv(a.contiguous())

@@ -1,19 +1,24 @@
-"""Kernel K7 (csrc/fp_pow.cu, the public-exponent powers fused.fp_pow /
-fp2_pow, which limbs.pow_fixed / inv and tower.fp2_pow_fixed are) on the
-CPU, where it cannot run:
+"""Kernel K7 (csrc/fp_pow.cu: the Fp inverse fused.fp_inv and the
+public-exponent powers fused.fp_pow / fp2_pow, which limbs.inv,
+limbs.pow_fixed and tower.fp2_pow_fixed are) on the CPU, where it cannot
+run:
 
 - the plain versions against the JAX package's ops/bm/limbs.inv and
-  pow_fixed and ops/bm/tower.fp2_pow_fixed (jitted on the CPU) and against
-  Python-integer powers, as integers mod p (tolerance 0), with 0, 1 and
-  p - 1 among the values and exponents 0, 1, 15, 16, 17 and the paths' own;
-- the kernel's chain replayed in Python integers in its order (the table
-  with a^2 as a product, a pair of lanes an Fp2 element, each lane's
-  operands, products and REDC), every bound asserted, against the powers;
+  pow_fixed and ops/bm/tower.fp2_pow_fixed (jitted on the CPU, one compile
+  each) and against Python-integer powers, as integers mod p (tolerance
+  0), with 0, 1, p - 1, R mod p and 2 among the values and exponents 0, 1,
+  15, 16, 17 and the paths' own;
+- the powers' chains replayed in Python integers in the kernel's order
+  (the table with a^2 as a product; an Fp2 element on four lanes, each
+  lane's layout, operands, table word, product, REDC and the part sums
+  across lanes), every bound asserted, against the powers; the inverse's
+  binary GCD is replayed in tests/test_torch_fp_inv.py;
 - the digit buffer the kernel reads replayed against the exponent, and the
   launch arguments' addressing of the operand;
 - the source's constants and the table's banks;
-- that the paths' powers route to the K7 wrappers, the wrappers' checks,
-  and that a CPU tensor runs the plain version and launches nothing.
+- that the inverse and the paths' powers route to the K7 wrappers, the
+  wrappers' checks, and that a CPU tensor runs the plain version and
+  launches nothing.
 """
 
 import re
@@ -40,6 +45,7 @@ R = 1 << 384
 INV_EXP = P - 2
 SQRT_EXP = tw._SQRT_RATIO_EXP
 SHORT = (0, 1, 15, 16, 17)
+NEG_PINV = -pow(P, -1, R) % R        # REDC's quotient factor, -p^-1 mod 2^384
 
 
 def _id(exponent):
@@ -57,17 +63,20 @@ def _one_torch_thread():
     torch.set_num_threads(prev)
 
 
+EDGES = (0, 1, P - 1, R % P, 2)
+
+
 def _values(seed, count):
-    """0, 1, p - 1, then seeded random values below p."""
+    """0, 1, p - 1, R mod p, 2, then seeded random values below p."""
     rng = np.random.default_rng(seed)
-    rand = [int.from_bytes(rng.bytes(48), "little") % P for _ in range(count - 3)]
-    return [0, 1, P - 1] + rand
+    rand = [int.from_bytes(rng.bytes(48), "little") % P for _ in range(count - len(EDGES))]
+    return list(EDGES) + rand
 
 
 def _pairs(seed, count):
     """(0, 0), (1, 0), (0, 1), (p - 1, p - 1), then seeded random pairs."""
-    vals = _values(seed, 2 * count)
-    return [(0, 0), (1, 0), (0, 1), (P - 1, P - 1)] + list(zip(vals[3:], vals[4:]))[:count - 4]
+    vals = _values(seed, 2 * count + len(EDGES))[len(EDGES):]
+    return [(0, 0), (1, 0), (0, 1), (P - 1, P - 1)] + list(zip(vals[0::2], vals[1::2]))[:count - 4]
 
 
 def _fp2_ints(t):
@@ -82,24 +91,45 @@ def _fp2_ints(t):
 
 @pytest.fixture(scope="module")
 def fp_case():
-    xs = _values(41, 6)
+    xs = _values(41, 8)
     digits = bl.ints_to_bm_np(xs)                          # (48, n), plain values
     return xs, digits, convert.from_jax_limbs(digits)
 
 
+@pytest.fixture(scope="module")
+def jax_inv(fp_case):
+    """bm.limbs.inv (its scan) on fp_case, jitted once, in halves of 4
+    columns: the shape tests/test_torch_limbs.py compiles it at, so a
+    process that runs both compiles it once."""
+    fn = jax.jit(bl.inv)
+    digits = fp_case[1]
+    return [v for c in range(0, digits.shape[1], 4)
+            for v in bl.bm_to_ints(fn(jnp.asarray(digits[:, c:c + 4])))]
+
+
 @pytest.mark.parametrize("jax_fn, exponent", [("inv", INV_EXP), ("pow_fixed", 15)],
                          ids=["inv", "pow_fixed_15"])
-def test_plain_fp_pow_matches_jax(fp_case, jax_fn, exponent):
-    """limbs.inv against bm.limbs.inv (its scan) and limbs.pow_fixed against
-    bm.limbs.pow_fixed below 16 (JAX's square-and-multiply path); each JAX
+def test_plain_fp_pow_matches_jax(fp_case, request, jax_fn, exponent):
+    """limbs.pow_fixed at p - 2 against bm.limbs.inv (its scan) and below 16
+    against bm.limbs.pow_fixed (JAX's square-and-multiply path); each JAX
     compile costs 1-4 s, so the other exponents go against integers."""
     xs, digits, t = fp_case
+    got = lb.pow_fixed(t, exponent)
     if jax_fn == "inv":
-        got, fn = lb.inv(t), bl.inv
+        ref = request.getfixturevalue("jax_inv")
     else:
-        got, fn = lb.pow_fixed(t, exponent), (lambda a: bl.pow_fixed(a, exponent))
-    ref = bl.bm_to_ints(jax.jit(fn)(jnp.asarray(digits)))
+        ref = bl.bm_to_ints(jax.jit(lambda a: bl.pow_fixed(a, exponent))(jnp.asarray(digits)))
     assert convert.to_ints(got) == ref == [pow(x, exponent, P) for x in xs]
+
+
+def test_plain_fp_inv_matches_jax(fp_case, jax_inv):
+    """limbs.inv (fused.fp_inv's plain version on a CPU tensor) against
+    bm.limbs.inv, through the same compile: 0 to 0, and a^(p-2) else."""
+    xs, _, t = fp_case
+    fused.reset_launches()
+    assert convert.to_ints(lb.inv(t)) == jax_inv == [pow(x, P - 2, P) for x in xs]
+    assert all(v == 0 for v in fused.launches.values())        # a CPU tensor: no launch
+    assert fused.PLAIN["fp_inv"] is fused.fp_inv_plain
 
 
 @pytest.mark.parametrize("exponent", SHORT + (255, 2**70 + 3), ids=_id)
@@ -143,7 +173,7 @@ def _redc(t):
     0 <= T < p 2^384; the quotient m < 2^384 (twelve words of
     t_i (-p^-1) mod 2^32), u = (T + m p) / 2^384 < 2p, one subtraction."""
     assert 0 <= t < P * R
-    m = (-t * pow(P, -1, R)) % R
+    m = t * NEG_PINV % R
     assert (t + m * P) % R == 0 and t + m * P < R * R        # the final carry is 0
     u = (t + m * P) // R
     assert u < 2 * P
@@ -174,49 +204,88 @@ def _fp_chain(a, exponent):
     return acc
 
 
+def _held(k, layout):
+    """The component lane k of an element holds: layout A (0) k >> 1, B (1)
+    (k >> 1) ^ (k & 1)."""
+    return (k >> 1) ^ (k & layout & 1)
+
+
 def _fp2_chain(a, exponent):
-    """fp2_pow_kernel on a pair of lanes: lane r computes component r from
-    the operands its selects form, then the two swap. The exponent split at
-    p (fused.fp2_pow_digits): per window four squares, a product by a^dB and
-    one by conj(a^dA)."""
-    def sqr(a0, a1):
-        lanes = []
-        for r in (0, 1):
-            x = a0 + (a0 if r else a1)
-            y = a1 if r else a0 + (P - a1)
+    """fp2_pow_kernel on an element's four lanes: lane k holds one
+    component (own) and reads word j = k & 1 of a table entry (b0, b1,
+    p - b1). The exponent split at p (fused.fp2_pow_digits): per window
+    four squares, a product by a^dB and one by conj(a^dA)."""
+    def put(own, layout):
+        """fp2_put: the entry's words from the lanes that write them."""
+        words = {}
+        for k in range(4):
+            j, h = k & 1, _held(k, layout)
+            if h or not j:
+                assert (h + j) not in words
+                words[h + j] = P - own[k] if h and j else own[k]
+        assert sorted(words) == [0, 1, 2] and all(0 <= w <= P for w in words.values())
+        return words
+
+    def mul(own, entry, layout, conj):
+        """fp2_mul_lanes: a row a lane, its REDC, the parts of a component
+        summed across lanes k and k ^ (1 in B, 3 in A)."""
+        parts = []
+        for k in range(4):
+            j, h = k & 1, _held(k, layout)
+            t = _prod(own[k], entry[1 + (h ^ conj) if j else 0])
+            assert t < P * P
+            parts.append(_redc(t))
+        partner = 1 if layout else 3
+        out = []
+        for k in range(4):
+            assert _held(k ^ partner, layout) ^ (k & 1 ^ 1) == _held(k, layout) ^ (k & 1)
+            total = parts[k] + parts[k ^ partner]
+            assert total < 2 * P
+            out.append(total - P if total >= P else total)
+        return out, layout ^ 1
+
+    def sqr(own, layout):
+        """fp2_sqr_lanes: the other component from lane k ^ 2, then h = 0
+        (a0 + a1)(a0 + (p - a1)), h = 1 (a1 + a1) a0."""
+        out = []
+        for k in range(4):
+            h, o = _held(k, layout), own[k ^ 2]
+            assert _held(k ^ 2, layout) == 1 - h
+            x = own[k] + (own[k] if h else o)
+            y = o if h else own[k] + (P - o)
             assert x < 2 * P and y < 2 * P
             t = _prod(x, y)
-            assert t < (2 * P * P if r else 4 * P * P)
-            lanes.append(_redc(t))
-        return tuple(lanes)
+            assert t < 4 * P * P
+            out.append(_redc(t))
+        return out
 
-    def mul(a0, a1, b0, b1, conj=False):
-        lanes = []
-        for r in (0, 1):
-            own, other = (b1, b0) if r else (b0, b1)
-            z = P - (a0 if r else a1)
-            x1 = z if conj and r else a0
-            x2 = a1 if r or conj else z
-            t = _prod(x1, own) + _prod(x2, other)
-            assert t < 2 * P * P
-            lanes.append(_redc(t))
-        return tuple(lanes)
+    def value(own, layout):
+        """The element the lanes hold: each component on two lanes, equal."""
+        comps = {}
+        for k in range(4):
+            assert comps.setdefault(_held(k, layout), own[k]) == own[k]
+        return comps[0], comps[1]
 
-    one = (R % P, 0)
-    table = [one, a]
+    layout = 0
+    own = [a[_held(k, layout)] for k in range(4)]
+    table = [{0: R % P, 1: 0, 2: 0}, put(own, layout)]
     for _ in range(14):
-        table.append(mul(*table[-1], *a))
+        own, layout = mul(own, table[1], layout, False)
+        table.append(put(own, layout))
     digits = fused.fp2_pow_digits(exponent)
-    acc = table[digits[0] & 15]
+    layout = 0
+    own = [table[digits[0] & 15][_held(k, layout)] for k in range(4)]
     for w, d in enumerate(digits):
         if w:
             for _ in range(4):
-                acc = sqr(*acc)
+                own = sqr(own, layout)
             if d & 15:
-                acc = mul(*acc, *table[d & 15])
+                own, layout = mul(own, table[d & 15], layout, False)
         if d >> 4:
-            acc = mul(*acc, *table[d >> 4], conj=True)
-    return acc
+            own, layout = mul(own, table[d >> 4], layout, True)
+    stored = {_held(k, layout): own[k] for k in range(4) if not k & 1}   # lanes j = 0 store
+    assert stored == dict(enumerate(value(own, layout)))
+    return value(own, layout)
 
 
 @pytest.mark.parametrize("exponent", (INV_EXP,) + SHORT, ids=_id)
@@ -286,17 +355,23 @@ def test_source_constants_and_banks():
     body = src[src.index("constexpr uint32_t one_limb"):]
     imms = [int(h, 16) for h in re.findall(r"0x([0-9a-f]{8})u", body[:body.index("}")])]
     assert imms == [((R % P) >> (32 * i)) & 0xFFFFFFFF for i in range(12)]
-    elems = int(re.search(r"kFp2Elems = (\d+);", src).group(1))
-    comp = int(re.search(r"kFp2Comp = (\d+) \* kFp2Elems;", src).group(1)) * elems
-    assert int(re.search(r"kFpElems = (\d+);", src).group(1)) == 32 == 2 * elems
-    # A warp's 32 lanes (element e, lane r) read components r and 1 - r of
-    # one entry at once: 32 distinct banks each time.
-    for swap in (0, 1):
-        banks = {((r ^ swap) * comp + l * elems + e) % 32
-                 for e in range(elems) for r in (0, 1) for l in (0,)}
-        assert len(banks) == 32
-    for entry in ("lh_fp_pow", "lh_fp2_pow", "lh_fp_pow_empty", "lh_fp2_pow_empty"):
+    lanes = int(re.search(r"kFp2Lanes = (\d+);", src).group(1))
+    assert re.search(r"kFp2Elems = 32 / kFp2Lanes;", src) and lanes == 4
+    elems = 32 // lanes
+    pad = int(re.search(r"kFp2Comp = lh::NL \* kFp2Elems \+ (\d+);", src).group(1))
+    comp = 12 * elems + pad
+    assert re.search(r"kFp2Entry = 3 \* kFp2Comp;", src)
+    assert int(re.search(r"kFpElems = (\d+);", src).group(1)) == 32
+    # A warp's 8 elements read (a product) or write (fp_put) words b0, b1
+    # and p - b1 of one entry at once, lanes of one word alike: 24 words on
+    # 24 distinct banks, at every limb.
+    for l in range(12):
+        banks = {(c * comp + l * elems + e) % 32 for e in range(elems) for c in range(3)}
+        assert len(banks) == 3 * elems
+    for entry in ("lh_fp_inv", "lh_fp_pow", "lh_fp2_pow", "lh_fp_inv_empty", "lh_fp_pow_empty",
+                  "lh_fp2_pow_empty"):
         assert f'extern "C" int {entry}(' in src
+        assert entry in fused._build.ENTRY_POINTS["fp_pow"]
     assert "fp_pow" in fused._build.SOURCES
 
 
@@ -304,13 +379,17 @@ def test_source_constants_and_banks():
 
 
 def test_powers_route_to_k7(monkeypatch):
+    """limbs.inv (and so tower.fp2_inv, the final exponentiation's) reaches
+    fused.fp_inv, no power; pow_fixed and fp2_pow_fixed reach the powers.
+    (The inverse's spy returns its operand: test_plain_fp_inv_matches_jax
+    runs the real one.)"""
     calls = []
-    for name in ("fp_pow", "fp2_pow"):
+    for name in ("fp_inv", "fp_pow", "fp2_pow"):
         real = getattr(fused, name)
 
-        def spy(a, exponent, _name=name, _real=real):
-            calls.append((_name, tuple(a.shape), exponent))
-            return _real(a, exponent)
+        def spy(a, *exponent, _name=name, _real=real):
+            calls.append((_name, tuple(a.shape)) + exponent)
+            return _real(a, *exponent) if exponent else a
 
         monkeypatch.setattr(fused, name, spy)
     a = lb.ints_to_limbs([2, 3], "cpu")
@@ -319,10 +398,12 @@ def test_powers_route_to_k7(monkeypatch):
     lb.inv(a)
     lb.pow_fixed(a, 17)
     tw.fp2_pow_fixed(b, 5)
-    assert calls == [("fp_pow", (12, 2), INV_EXP), ("fp_pow", (12, 2), 17),
-                     ("fp2_pow", (2, 12, 1), 5)]
+    tw.fp2_inv(b)
+    assert calls == [("fp_inv", (12, 2)), ("fp_pow", (12, 2), 17),
+                     ("fp2_pow", (2, 12, 1), 5), ("fp_inv", (12, 1))]
     assert all(v == 0 for v in fused.launches.values())        # the plain versions
-    assert [fused.WRAPPERS[k].__name__ for k in ("fp_pow", "fp2_pow")] == ["fp_pow", "fp2_pow"]
+    assert [fused.WRAPPERS[k].__name__ for k in ("fp_inv", "fp_pow", "fp2_pow")] == \
+        ["fp_inv", "fp_pow", "fp2_pow"]
     assert fused.PLAIN["fp_pow"] is fused.fp_pow_plain
     assert fused.PLAIN["fp2_pow"] is fused.fp2_pow_plain
 
@@ -346,3 +427,21 @@ def test_wrapper_checks():
         fused.reset_launches()
         assert torch.equal(fn(x, 0), fused.PLAIN[name](x, 0))
         assert fused.launches[name] == 0 and name in fused.PLAIN
+
+
+def test_fp_inv_wrapper_checks():
+    """fused.fp_inv takes contiguous int32 (..., 12, n) on the CPU (its
+    plain version, test_plain_fp_inv_matches_jax) or a CUDA device, and
+    raises otherwise."""
+    x = lb.ints_to_limbs([1, 2], "cpu")
+    with pytest.raises(TypeError):
+        fused.fp_inv(x.to(torch.int64))
+    with pytest.raises(ValueError):
+        fused.fp_inv(x[:11])                                   # shape
+    with pytest.raises(ValueError, match="contiguous"):
+        fused.fp_inv(torch.cat([x, x], dim=-1)[..., ::2])
+    with pytest.raises(ValueError, match="no kernel for device"):
+        fused.fp_inv(torch.empty(x.shape, dtype=torch.int32, device="meta"))
+    with pytest.raises(ValueError):
+        fused.fp_inv(x[0])                                     # no limb axis
+    assert fused.WRAPPERS["fp_inv"] is fused.fp_inv and "fp_inv" in fused.launches
