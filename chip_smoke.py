@@ -16,13 +16,15 @@ Phases, each printing one JSON line:
             version's time and its bound. K4's operands carry the edge
             pairs of _k4_edge_pairs() in their first columns, K5's the edge
             points of _k5_edge_points() (infinity, P + P, P + (-P), O + O,
-            Z != 1), K6's T and Q G2's edge points with P's coordinates
+            Z != 1), K6's (the Miller loop's T chain and its one-step
+            calls) T and Q G2's edge points with P's coordinates
             p.select(-3, i) of one tensor, and K4 is held
             at every edge pair at once at (12, m) and (m, 12, 1), mul_small
             at each k of K4_EDGE_KS (k_edges). K1, K2 and K4 are also timed
             at the paths' heavy operand shapes (K1_SHAPES with KZG's ladder
-            shapes, K2_SHAPES, K4_SHAPES, K5_SHAPES, K6_SHAPES: both K6
-            modes at n = 2, 65, 4097 and 16385 pairs), each beside floor_ms,
+            shapes, K2_SHAPES, K4_SHAPES, K5_SHAPES, K6_SHAPES: the chain
+            and both one-step calls at n = 2, 65, 4097 and 16385 pairs),
+            each beside floor_ms,
             an empty kernel on its library's grid timed the same way (also
             at every n). K7 (the inverse and the powers) is held at
             K7_SHAPES instead of the n above, the powers at each exponent
@@ -46,8 +48,8 @@ Phases, each printing one JSON line:
             replays the bucket's CUDA graphs: the launch counts are reset
             just before its first call (which runs each stage eagerly once
             and captures it) and read just after, and every kernel must have
-            been launched (but OFF_PATH's, which no path launches since K6
-            and K7's inverse),
+            been launched (but OFF_PATH's, which no path launches since K6,
+            its chain and K7's inverse),
             and none of OFF_PAIRING at the pairing's m + 1 = 65 pairs; a warm
             call must launch nothing from Python. Then
             the eager run split into its stages for their wall times, and
@@ -150,8 +152,9 @@ Phases, each printing one JSON line:
 8. profile  torch.profiler over one call of each unit (fp_add, fp_sub,
             fp_neg and fp_mul_small on equal shapes, fp_add broadcast and
             strided, G1/G2 add and double, the Miller doubling and addition
-            steps, the Fp inverse and the Fp2 sqrt-ratio power: one CUDA
-            kernel each, or the phase fails), over each
+            steps, a Miller loop's T chain, the Fp inverse and the Fp2
+            sqrt-ratio power: one CUDA kernel each, or the phase fails),
+            over each
             device stage of the headline and by_root verifies (a stage's
             kernels are the nodes a CUDA graph of it would hold), then over
             one warm eager headline verify and one warm by_root KZG verify:
@@ -278,7 +281,10 @@ K4_SHAPES = ((2, 12, 64), (2, 12, 65), (12, 4096), (2, 12, 4096), (6, 12, 4096))
 # They span both of K5's layouts (pairs of lanes up to 1024 points, one lane
 # a unit from 1025).
 K5 = ("g1_add", "g1_double", "g2_add", "g2_double")
-K6 = ("miller_dbl", "miller_add")
+# K6: a Miller loop's T chain (the paths' only K6 call) and its one-step
+# calls (K6_STEPS, on no path).
+K6_STEPS = ("miller_dbl", "miller_add")
+K6 = K6_STEPS + ("miller_chain",)
 # K7: the inverse (fp_inv, no exponent) and the powers (K7_POW, a public
 # exponent each call). The paths run fp_inv and fp2_pow (K7_PATH).
 K7_POW = ("fp_pow", "fp2_pow")
@@ -288,10 +294,10 @@ K5_SHAPES = {"g1_add": ((3, 12, 16), (3, 12, 512), (3, 12, 4096), (2, 3, 12, 409
              "g1_double": ((3, 12, 16), (3, 12, 512), (3, 12, 4096)),
              "g2_add": ((3, 2, 12, 64), (3, 2, 12, 65), (3, 2, 12, 4096), (3, 2, 12, 16384)),
              "g2_double": ((3, 2, 12, 64), (3, 2, 12, 4096), (3, 2, 12, 16384))}
-# K6's T shapes (P's coordinates at (12, n), strided as p_proj.select(-3, i)
-# gives them): KZG's two pairs, the headline's m + 1 = 65, 4097 pairs (4096
-# distinct messages) in the one-lane layout (past 1024 pairs), and
-# max_n_bucket() + 1 = 16385.
+# K6's T (and Q) shapes (P's coordinates at (12, n), strided as
+# p_proj.select(-3, i) gives them): KZG's two pairs, the headline's m + 1 =
+# 65, 4097 pairs (4096 distinct messages) in the one-lane layout (past 1024
+# pairs), and max_n_bucket() + 1 = 16385.
 K6_SHAPES = {name: ((3, 2, 12, 2), (3, 2, 12, 65), (3, 2, 12, 4097), (3, 2, 12, 16385))
              for name in K6}
 # Libraries timed at main-path shapes beside an empty kernel on their grid:
@@ -301,7 +307,7 @@ FLOORED = {"fp_mul": ("lh_fp_empty", K1_SHAPES, "k1"),
            "fp_add": ("lh_fp_add_empty", K4_SHAPES, "k4"),
            "curve_op": ("lh_curve_empty", {**K5_SHAPES, **K6_SHAPES}, "k5")}
 # Kernels timed against an empty kernel of their own grid, not their
-# library's: K6 against one on the doubling step's.
+# library's: K6 against one on its chain's grid.
 FLOOR_ENTRY = {**{name: "lh_miller_empty" for name in K6}, "fp_inv": "lh_fp_inv_empty",
                "fp_pow": "lh_fp_pow_empty", "fp2_pow": "lh_fp2_pow_empty"}
 # K7's shapes: the final exponentiation's inverse (12, 1), and the Fp
@@ -321,18 +327,19 @@ HEADLINE = dict(n_sets=4096, keys=4, distinct=64)
 KZG_BATCHES = {"by_root": 6, "by_range": 192}
 KZG_ELEMENTS = 4096
 # Kernels the KZG path cannot run without: the G1 ladders' group law and
-# Fp products, the modular additions, the Miller steps (K6) and the final
-# exponentiation's Fp2 and Fp12 products (no K5 on G2: the Miller steps hold
-# the G2 doubling and addition).
+# Fp products, the modular additions, the Miller loop's T chain (K6) and
+# the final exponentiation's Fp2 and Fp12 products (no K5 on G2: the chain
+# holds the G2 doubling and addition).
 K4 = ("fp_add", "fp_sub", "fp_neg", "fp_mul_small")
 # Kernels no path launches: fp_mul_small since K6 folded the Miller steps'
 # small multiples into its schedule, fp_sqr since K7 took the Fp inverse's
 # squares (its only path caller), fp_pow since the inverse became K7's
-# binary GCD (fp_inv). Held against their plain versions in the kernels
+# binary GCD (fp_inv), K6's one-step calls since the Miller loop runs its
+# steps as one chain. Held against their plain versions in the kernels
 # phase (every shape, n = 65 included), required on no path.
-OFF_PATH = ("fp_mul_small", "fp_sqr", "fp_pow")
-KZG_REQUIRED = (("fp_mul", "fp2_mul", "fp12_sqr", "fp12_mul", "fp12_line", "fp_add", "fp_sub",
-                 "fp_neg", "g1_add", "g1_double") + K6 + ("fp_inv",))
+OFF_PATH = ("fp_mul_small", "fp_sqr", "fp_pow") + K6_STEPS
+KZG_REQUIRED = ("fp_mul", "fp2_mul", "fp12_sqr", "fp12_mul", "fp12_line", "fp_add", "fp_sub",
+                "fp_neg", "g1_add", "g1_double", "miller_chain", "fp_inv")
 
 # Kernels K6 took off the pairing's width (n = m + 1 pairs; KZG's 2): none
 # of them may launch at that n.
@@ -376,13 +383,19 @@ WORK = {
     "g1_double": (2 * FP_SQR + 6 * FP_PROD + 7 * REDC, 2 * 144),
     "g2_add": (36 * FP_PROD + 18 * REDC, 3 * 288),
     "g2_double": (22 * FP_PROD + 14 * REDC, 2 * 288),
-    # K6, per pair, as its schedule needs them: the doubling step 42 Fp
-    # products (12, 24 and 6 a level) and 30 reductions (10, 14, 6), the
-    # addition step 66 (30, 30, 6) and 34 (16, 12, 6); T (and Q) read, 288
-    # bytes each, P's three coordinates read, 144, and T' and the line
-    # written, 576.
+    # K6, per pair: a step's work is the smaller of its two schedules'
+    # (ops/fused.py k5_schedule), the three-level one's (the per-step
+    # kernels' before the chain): the doubling step 42 Fp products and 30
+    # reductions, the addition step 66 and 34; the two-level one runs 44
+    # (20 and 24 a level) and 30 (18, 12), and 68 (38, 30) and 36 (24,
+    # 12). A step reads T (and Q), 288
+    # bytes each, and P's three coordinates, 144, and writes T' and the
+    # line, 576; the chain reads T, Q and P once, writes T once and
+    # MILLER_STEPS' 68 lines (63 doublings and 5 additions).
     "miller_dbl": (42 * FP_PROD + 30 * REDC, 288 + 144 + 576),
     "miller_add": (66 * FP_PROD + 34 * REDC, 2 * 288 + 144 + 576),
+    "miller_chain": (63 * (42 * FP_PROD + 30 * REDC) + 5 * (66 * FP_PROD + 34 * REDC),
+                     2 * 288 + 144 + 288 + 68 * 288),
     # K7's inverse, per element, as its binary GCD (csrc/fp_pow.cu) needs
     # them: 37 batches, each update_fg's 2 x 2 products of 13 signed 30-bit
     # limbs, update_de's 2 x 3 and its two quotient words, then one
@@ -433,13 +446,17 @@ SOURCES = {
     "curve_op": ("lighthouse_tpu_torch/ops/csrc/curve_op.cu",
                  "none (no pallas_call): lighthouse_tpu/ops/bm/curves.py:100 add, :122 double, "
                  "fused by XLA"),
-    # K6, in K5's source, per kernel:
+    # K6, in K5's source, per wrapper:
     "miller_dbl": ("lighthouse_tpu_torch/ops/csrc/curve_op.cu",
                    "none (no pallas_call): lighthouse_tpu/ops/bm/pairing.py:24 _dbl_step, "
                    "fused by XLA in the lax.scan at :107"),
     "miller_add": ("lighthouse_tpu_torch/ops/csrc/curve_op.cu",
                    "none (no pallas_call): lighthouse_tpu/ops/bm/pairing.py:63 _add_step, "
                    "fused by XLA"),
+    "miller_chain": ("lighthouse_tpu_torch/ops/csrc/curve_op.cu",
+                     "none (no pallas_call): lighthouse_tpu/ops/bm/pairing.py:88 "
+                     "miller_loop_proj, its lax.scans at :107 (_dbl_step :24) and :112 "
+                     "(_add_step :63) fused by XLA"),
     # K7, one source, per kernel:
     "fp_inv": ("lighthouse_tpu_torch/ops/csrc/fp_pow.cu",
                "none (no pallas_call): lighthouse_tpu/ops/bm/limbs.py:466 inv, pow_fixed(a, "
@@ -664,18 +681,22 @@ def _check_equal(name, what, xs, k=K4_TIMED_K):
     got = _call(name, xs, k)
     ref = _call(name, xs, k, plain=True)
     _sync()
-    if isinstance(got, tuple):          # K6: the point and the line
+    if isinstance(got, tuple):          # K6: the point and the line(s)
         if len(got) != len(ref) or any(g.shape != r.shape for g, r in zip(got, ref)):
             raise AssertionError(f"{name} at {what}: outputs {[tuple(g.shape) for g in got]}, "
                                  f"plain {[tuple(r.shape) for r in ref]}")
-        got, ref = torch.stack(got), torch.stack(ref)
-    if got.shape != ref.shape:
-        raise AssertionError(f"{name} at {what}: shape {tuple(got.shape)}, plain {tuple(ref.shape)}")
-    diff = (got.to(torch.int64) & 0xFFFFFFFF) - (ref.to(torch.int64) & 0xFFFFFFFF)
-    mism = int(diff.ne(0).any(dim=-2).sum())
-    if mism:
-        raise AssertionError(f"{name} at {what}: {mism} elements differ from the plain version")
-    return int(diff.abs().max())
+    else:
+        got, ref = (got,), (ref,)
+    err = 0
+    for g, r in zip(got, ref):
+        if g.shape != r.shape:
+            raise AssertionError(f"{name} at {what}: shape {tuple(g.shape)}, plain {tuple(r.shape)}")
+        diff = (g.to(torch.int64) & 0xFFFFFFFF) - (r.to(torch.int64) & 0xFFFFFFFF)
+        mism = int(diff.ne(0).any(dim=-2).sum())
+        if mism:
+            raise AssertionError(f"{name} at {what}: {mism} elements differ from the plain version")
+        err = max(err, int(diff.abs().max()))
+    return err
 
 
 def _compare(name, shapes, gen):
@@ -736,7 +757,8 @@ def _timed(name, shapes, gen):
     reps = 200 if elems < 16384 else 50
     call_ms = cuda_ms(lambda: _call(name, xs), reps)
     ms = graph_ms(lambda: _call(name, xs), reps)
-    plain_ms = cuda_ms(lambda: _call(name, xs, plain=True), 3)
+    # The chain's plain version is 68 plain steps (1.4 s at 16385 pairs).
+    plain_ms = cuda_ms(lambda: _call(name, xs, plain=True), 1 if name == "miller_chain" else 3)
     mads, nbytes = WORK[name]
     t_ops, t_bytes = elems * mads / INT32_MAD_PER_S * 1e3, elems * nbytes / HBM_BYTES_PER_S * 1e3
     return {"mismatches": 0, "max_abs_err": err, "ms": ms, "call_ms": call_ms,
@@ -1986,7 +2008,7 @@ def phase_multi(sets, poisoned, distinct):
 # functions' do not): matched against the wrapper's launch counts. Group 2
 # is the kernel's stem, _kernel_stem's value for the wrappers that launch it.
 PORT_KERNEL = re.compile(
-    r"^(void )?\(anonymous namespace\)::(fp_add|fp_mul|fp2|fp12|fp_inv|fp_pow|fp2_pow|curve)"
+    r"^(void )?\(anonymous namespace\)::(fp_add|fp_mul|fp2|fp12|fp_inv|fp_pow|fp2_pow|curve|chain)"
     r"_kernel")
 _LIB_STEM = {"fp_mul": "fp_mul", "fp2_mul": "fp2", "fp12_op": "fp12", "fp_add": "fp_add",
              "curve_op": "curve"}
@@ -1994,8 +2016,12 @@ _LIB_STEM = {"fp_mul": "fp_mul", "fp2_mul": "fp2", "fp12_op": "fp12", "fp_add": 
 
 def _kernel_stem(name):
     """The stem of the CUDA kernel wrapper `name` launches (PORT_KERNEL's
-    group 2): its library's, or for K7 (one kernel a mode) its own name."""
+    group 2): its library's, K6's chain_kernel, or for K7 (one kernel a
+    mode) its own name."""
     from lighthouse_tpu_torch.ops import fused
+
+    if name in K6:
+        return "chain"
 
     lib = fused._KERNELS[name][0]
     return _LIB_STEM.get(lib, name)
@@ -2063,8 +2089,9 @@ def _profiled(fn):
 
 def _units(gen):
     """One call of each unit at the headline's shapes (G1 at n sets, G2 and
-    the Miller steps at m messages and m + 1 pairs, the Fp inverse at one
-    element, the sqrt-ratio power at h2g2's 2 x m): name -> thunk."""
+    the Miller steps and T chain at m messages and m + 1 pairs, the Fp
+    inverse at one element, the sqrt-ratio power at h2g2's 2 x m): name ->
+    thunk."""
     from lighthouse_tpu_torch.ops import curves as cv
     from lighthouse_tpu_torch.ops import fused, pairing
     from lighthouse_tpu_torch.ops import limbs as lb
@@ -2092,6 +2119,7 @@ def _units(gen):
         "g2_double": lambda: cv.G2.double(g2a),
         "miller_dbl_step": lambda: pairing._dbl_step(t, px, py, pz),
         "miller_add_step": lambda: pairing._add_step(t, q, px, py, pz),
+        "miller_chain": lambda: fused.miller_chain(q, q, px, py, pz),
         "fp_inv": lambda: lb.inv(one),
         "fp2_sqrt_ratio_pow": lambda: tw.fp2_pow_fixed(s, tw._SQRT_RATIO_EXP),
     }
@@ -2113,7 +2141,8 @@ def phase_profile(headline, kzg_by_root):
         per_unit[name] = {"kernels": tr["kernels"], "wrapper_launches": sum(launched.values()),
                           "busy_ms": tr["busy_ms"]}
     for name in (("fp_add", "fp_sub", "fp_add_broadcast", "fp_add_strided") + K5
-                 + ("miller_dbl_step", "miller_add_step", "fp_inv", "fp2_sqrt_ratio_pow")):
+                 + ("miller_dbl_step", "miller_add_step", "miller_chain", "fp_inv",
+                    "fp2_sqrt_ratio_pow")):
         if per_unit[name]["kernels"] != 1:
             raise AssertionError(f"{name} ran {per_unit[name]['kernels']} CUDA kernels, not 1")
     per_stage = {}

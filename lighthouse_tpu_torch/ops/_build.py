@@ -41,12 +41,14 @@ def _sig(n_ptr: int, n_int: int = 2) -> list:
 # C entry points per library: name -> argument types. Most take (output,
 # inputs..., rows, n, stream); K4's and K5's take (output, inputs..., rows,
 # n, [k,] geometry, stream), the geometry a pointer to int64 strides or null
-# (csrc/fp_add.cu, csrc/curve_op.cu), K6's two outputs (the point, the
-# line) first; K7's powers take (output, input, digits, digit count, rows,
-# n, stream). lh_fp_empty, lh_fp2_empty, lh_fp_add_empty, lh_curve_empty,
-# lh_miller_empty, lh_fp_inv_empty, lh_fp_pow_empty and lh_fp2_pow_empty
-# launch an empty kernel on K1's, K2's, K4's, K5's, K6's and K7's three
-# grids: chip_smoke.py's floor.
+# (csrc/fp_add.cu, csrc/curve_op.cu); K6's takes its two outputs (the
+# last T, the lines), its five operands, rows, n, the steps (a byte each)
+# and their count, the geometry and the stream; K7's powers take (output,
+# input, digits, digit count, rows, n, stream). lh_fp_empty,
+# lh_fp2_empty, lh_fp_add_empty, lh_curve_empty, lh_miller_empty,
+# lh_fp_inv_empty, lh_fp_pow_empty and lh_fp2_pow_empty launch an empty
+# kernel on K1's, K2's, K4's, K5's, K6's and K7's three grids:
+# chip_smoke.py's floor.
 ENTRY_POINTS = {
     "fp_mul": {"lh_fp_mul": _sig(3), "lh_fp_sqr": _sig(2), "lh_fp_empty": _sig(1)},
     "fp2_mul": {"lh_fp2_mul": _sig(3), "lh_fp2_sqr": _sig(2), "lh_fp2_empty": _sig(1)},
@@ -56,7 +58,7 @@ ENTRY_POINTS = {
                "lh_fp_add_empty": _sig(1)},
     "curve_op": {"lh_g1_add": _sig(3) + [_PTR], "lh_g1_dbl": _sig(2) + [_PTR],
                  "lh_g2_add": _sig(3) + [_PTR], "lh_g2_dbl": _sig(2) + [_PTR],
-                 "lh_miller_dbl": _sig(6) + [_PTR], "lh_miller_add": _sig(7) + [_PTR],
+                 "lh_miller_chain": [_PTR] * 7 + [_INT] * 2 + [_PTR, _INT, _PTR, _PTR],
                  "lh_curve_empty": _sig(1), "lh_miller_empty": _sig(1)},
     "fp_pow": {"lh_fp_inv": _sig(2), "lh_fp_pow": _sig(3, 3), "lh_fp2_pow": _sig(3, 3),
                "lh_fp_inv_empty": _sig(1), "lh_fp_pow_empty": _sig(1),

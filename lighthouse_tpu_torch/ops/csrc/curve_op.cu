@@ -1,8 +1,8 @@
 // K5: the complete G1 / G2 group law, p + q and 2 p, one launch a call, over
 // projective points (X : Y : Z) in Montgomery limbs, canonical in [0, p):
 //   G1 (..., 3, 12, n)        G2 (..., 3, 2, 12, n)
-// K6 (below K5, the same engine): the Miller loop's doubling and addition
-// steps, one launch a step.
+// K6 (below K5, the same engine): a Miller loop's whole T chain (its
+// doubling and addition steps and their lines), one launch a loop.
 //
 // No Pallas kernel computes these: the JAX package writes the
 // Renes-Costello-Batina complete formulas for a = 0 as stacked field
@@ -120,56 +120,77 @@
 // device and layout at its first call, before the graphs that capture it
 // (they run each stage once eagerly first).
 //
-// K6: the Miller loop's doubling step (2T and the tangent line at T) and
-// addition step (T + Q and the line through T and Q), each line evaluated at
-// P and homogenized by its Z, for n pairs: T, Q (..., 3, 2, 12, n), px, py,
-// pz (..., 12, n), read in place as p_proj.select(-3, i) gives them. No
-// Pallas kernel computes these either: lighthouse_tpu/ops/bm/pairing.py:24
+// K6: a Miller loop's T chain for n pairs: from T, with Q (..., 3, 2, 12,
+// n) and P's px, py, pz (..., 12, n), read in place as p_proj.select(-3, i)
+// gives them, the steps of fused.MILLER_STEPS (63 doublings, 2T and the
+// tangent line at T, and 5 additions, T + Q and the line through T and Q,
+// each line evaluated at P and homogenized by its Z), one launch. No Pallas
+// kernel computes these either: lighthouse_tpu/ops/bm/pairing.py:24
 // _dbl_step and :63 _add_step are array code that XLA fuses into the
-// lax.scan body at :107 / :112. Here they were 30 and 18 kernels a step
-// (K1, K2, K4, K5 and the torch.stack copies of their operands, 48.6 and
-// 37.2 us on the card at 65 pairs); K6 is one launch, which writes the
-// point and the line (l0, l1, l2) (..., 3, 2, 12, n) as K3's fp12_mul_line
-// reads it. Its schedule (ops/fused.py k5_schedule) has three levels:
-//   doubling  level 0 Y^2, YZ, Z^2, XY, X^2 (12 Fp products, 10
-//             reductions); level 1 K5's doubling products and X^2 X,
-//             YZ Z, Y^2 Z, X^2 Z (24, 14: the point, flagged to the output,
-//             and 2 xi YZ^2, 3 X^2 Z, X^3, Y^2 Z into slots); level 2
-//             l0 = 2 xi YZ^2 py, l1 = (3 X^3 - 2 Y^2 Z) pz, l2 = -3 X^2 Z
-//             px (6 Fp products by P's coordinates, 6 reductions);
-//   addition  level 0 K5's g2_add products and yq Z1, xq Z1, Y1 zq, X1 zq
-//             (30, 16: n and d folded into the reductions); level 1 K5's
-//             and d Z1, n X1, n Z1, d Y1 (30, 12); level 2 l0 = xi d Z1 py,
-//             l1 = (n X1 - d Y1) pz, l2 = -n Z1 px (6, 6).
-// Every linear piece ([3b], the small multiples, xi, the sums and the
-// line's negation) is an operand's combination or a reduction's signed
-// coefficients, within K5's bounds; a reduction's slot is the lowest that
-// no later level reads. It needs 10,368 (doubling) and 14,400 (addition)
-// multiply-adds a pair against 1,008 and 1,296 bytes: bound by operations.
-// K6 keeps K5's layouts; one lane a unit takes 16 points a block, where 32
-// would take 768 and 960 threads (24 and 30 units a point). On the card
-// (graph-replay us, NVIDIA H100 80GB HBM3, 700 W, chip_smoke.py): the
-// doubling step 11.0-11.1 at 2-65 pairs, 22.7 at 4097, 84-85 at 16385; the
-// addition step 12.4-12.6, 35.4-35.8, 137-139; ptxas (nvcc 12.9) 78-93
-// registers a thread, no spills. Sharing the engine (operands by index,
-// three levels, the output flag) costs K5 up to 0.4 us a call: G1 double
-// 6.5-6.8 -> 6.9-7.1 at n = 1-64, G2 double 7.5-7.7 -> 7.7-7.9, G1 add
-// 8.7-8.8 -> 9.0-9.2 at 4096, G2 add within 0.2 (the same card, the two
-// sources in turns). Tried and dropped, each within 0.1 us of this source:
-// operands selected over static indices (no indexed parameter), with
-// __ldg or plain loads; K5's output test and address resolved at compile
-// time.
+// lax.scan bodies at :107 / :112. The port ran them as 30 and 18 kernels a
+// step, then as one launch a step on this engine at three levels (0.011-
+// 0.012 ms a step at 2-65 pairs, 10-12x the launch floor, 0.758 ms a
+// loop). Now a block loads T, Q and P once into slots 0-14 and
+// walks the steps (a bit each in the launch's arguments), each step two
+// levels of the same engine:
+//   doubling  level 0 Y^2, YZ, Z^2, XY, X^2 and Z py, Z px, X pz, Z pz (20
+//             Fp products, 18 reductions); level 1 K5's doubling products
+//             and the line from level 0's values, l0 = 2 xi (YZ)(Z py), l1
+//             = (3 X^2)(X pz) - (2 Y^2)(Z pz), l2 = -(3 X^2)(Z px) (24, 12);
+//   addition  level 0 K5's g2_add products, yq Z1, xq Z1, Y1 zq, X1 zq and
+//             Z1 py, Z1 px, X1 pz, Y1 pz (38, 24: n and d folded into the
+//             reductions); level 1 K5's and l0 = xi d (Z1 py), l1 = n (X1
+//             pz) - d (Y1 pz), l2 = -n (Z1 px) (30, 12).
+// Level 1 reads no input, so level 0's values may take T's slots, never
+// Q's or P's (fused.K6_KEPT); level 1's six point reductions go back into
+// T's slots (the output's Fp index is the slot) and, at the last step, to
+// the output T, its six line reductions to lines[step] (steps, ..., 3, 2,
+// 12, n), the layout K3's fp12_mul_line reads. A small multiple that would
+// take a reduction past 9 p^2 (3 X^2, 2 Y^2) is an operand's. The steps
+// need 10,656 and 14,976 multiply-adds a pair (the three-level schedules'
+// 10,368 and 14,400: two more Fp products a step for folding the line into
+// level 1) against 19,584 bytes of lines a pair a loop: bound by
+// operations. The one-step calls (fused.miller_dbl / miller_add) are this
+// kernel on a chain of one step.
+// Layouts: up to 1024 pairs, pairs of lanes at LH_K6_PAIR_P pairs a block
+// with 38 units a pair (the addition's level 0: every level in one round);
+// from 1025, one lane a unit at 16 pairs a block with the doubling's 24
+// units (384 threads, two blocks an SM; an addition's levels take two
+// rounds of 24).
+// On the card (graph-replay ms a Miller loop, NVIDIA H100 80GB HBM3, 700 W,
+// chip_smoke.py, parent and this source in one call): 68 launches of the
+// three-level steps 0.758 / 0.758 / 1.604 / 6.006 at 2 / 65 / 4097 / 16385
+// pairs, the chain 0.418-0.421 / 0.422-0.425 / 1.335 / 5.098-5.099, about
+// 6.2 us a step at 2-65 pairs (5.6x the launch floor a step where the
+// three-level steps ran 10-12x); bound 4.3e-5 / 0.0028 / 0.177 / 0.709
+// (operations). Pairs a block in the pairs layout (scripts/probe_k6.py,
+// the three builds in turns, ms at 2 / 65 pairs): 1: 0.426 / 0.429, 2:
+// 0.422 / 0.425 (kept), 4: 0.479 / 0.480: at 4 pairs ten warps share an
+// SM's four schedulers on one block's path, at 1 three. The one-step calls
+// (a chain of one) run 0.0082-0.0085 (doubling) and 0.0091-0.0096
+// (addition) at 2-65 pairs, where the three-level steps ran 0.0110 and
+// 0.0122-0.0124. Resources (ptxas, sm_90a, nvcc 12.9, no spills): 92
+// registers a thread in the pairs layout at 2 pairs a block (94 at 1, 92
+// at 4), 79 in the one-lane layout; shared memory, dynamic, per block:
+// the two schedules (1,556 words), 33 slots, 38 product columns and, in
+// pairs, 40 units' exchange: 46.1 KB at 2 pairs a block (allowed above 48
+// KB as K5's), 94.5 KB at 16 pairs one lane.
 #include <atomic>
 
 #include "fp.cuh"
 #include "curve_plan.h"
+
+// Pairs a block in K6's pairs layout (1, 2 or 4: scripts/probe_k6.py builds
+// each and times the chain at 2 and 65 pairs; 2 was the fastest).
+#ifndef LH_K6_PAIR_P
+#define LH_K6_PAIR_P 2
+#endif
 
 namespace {
 
 constexpr int kMulWords = 2 * LH_K5_LIN;
 constexpr int kRedWords = 1 + LH_K5_RED;
 constexpr uint32_t kHas = 1u << 31;
-constexpr uint32_t kOut = 1u << 24;   // a reduction's head: to the output
 
 // Element strides of one operand over the output's (r1, r0) rows, its
 // coordinate, component (G2), limb and column axes; a broadcast axis has
@@ -183,13 +204,20 @@ struct Grid {
 };
 
 // A launch's operands, in the order of the schedule's inputs: the points
-// (K5: p, then q for an add; K6: T, then Q for an addition step), then
-// P's coordinates px, py, pz (K6), each an Fp read with stride 0 on the
-// coordinate and component axes.
+// (K5: p, then q for an add; K6: T, then Q), then P's coordinates px, py,
+// pz (K6), each an Fp read with stride 0 on the coordinate and component
+// axes.
 constexpr int kMaxOps = 5;
 struct Operands {
   const uint32_t* ptr[kMaxOps];
   Geom geom[kMaxOps];
+};
+
+// K6's steps: their count and a bit a step, set for an addition.
+constexpr int kMaxSteps = 128;
+struct Steps {
+  uint32_t count;
+  uint32_t adds[kMaxSteps / 32];
 };
 
 // clock64 stamps of block 0's thread 0 at the steps of its path, read by
@@ -538,10 +566,27 @@ __device__ __forceinline__ void reduce(const uint32_t* rec, const uint32_t* prod
   }
 }
 
+// Input Fp f of a point (row r1, r0, column j), sub-lane r's limbs r + L i
+// into x (zeros for a point past the end): below the points' 3 comps Fp
+// values each, of point operand f / (3 comps), coordinate (f / comps) % 3,
+// component f % comps; past them, P's coordinate operand.
+template <int L, int kInputs, int kFps, int kComps>
+__device__ __forceinline__ void fetch(const Operands& ops, int f, int r, bool live, uint32_t r1,
+                                      uint32_t r0, uint32_t j, uint32_t* x) {
+  constexpr int kPt = 3 * kComps;               // Fp values a point
+  constexpr int kPts = kInputs - kFps;          // the points' Fp values
+  const int o = f < kPts ? f / kPt : kPts / kPt + (f - kPts);
+  const int c = f < kPts ? f % kPt : 0;
+  const Geom gm = ops.geom[o];
+  const uint32_t* src =
+      ops.ptr[o] + r1 * gm.s1 + r0 * gm.s0 + (c / kComps) * gm.sc + (c % kComps) * gm.sk + j * gm.sn;
+#pragma unroll
+  for (int i = 0; i < lh::NL / L; ++i) x[i] = live ? __ldg(src + (r + L * i) * gm.sl) : 0u;
+}
+
 template <class K, int P, int L>
 __global__ void __launch_bounds__(Shape<K, P, L>::warps * 32, Shape<K, P, L>::min_blocks)
-curve_kernel(uint32_t* __restrict__ out, uint32_t* __restrict__ line, const Operands ops,
-             Grid g) {
+curve_kernel(uint32_t* __restrict__ out, const Operands ops, Grid g) {
   using S = Shape<K, P, L>;
   extern __shared__ __align__(16) uint32_t smem[];
   const int r = threadIdx.x % L, up = threadIdx.x / L;
@@ -552,14 +597,11 @@ curve_kernel(uint32_t* __restrict__ out, uint32_t* __restrict__ line, const Oper
   uint32_t* prod = smem + S::plan + K::slots * S::fp + q;
   uint32_t* scratch = smem + S::plan + K::slots * S::fp + K::wide * S::wide + u * S::rs;
 
-  // Load: unit f < inputs loads input Fp f of its point: below the points'
-  // 3 comps Fp values each, of point operand f / (3 comps), coordinate
-  // (f / comps) % 3, component f % comps; past them, P's coordinate
-  // operand; sub-lane r its limbs r + L i. Every thread loads its share of
-  // the schedule. All loads are issued before the first shared store (a
-  // warp issues in order: a store waiting on its load would hold back the
-  // loads after it). A point past the end computes on zeros and stores
-  // nothing.
+  // Load: unit f < inputs loads input Fp f of its point (fetch), every
+  // thread its share of the schedule. All loads are issued before the
+  // first shared store (a warp issues in order: a store waiting on its load
+  // would hold back the loads after it). A point past the end computes on
+  // zeros and stores nothing.
   static_assert(K::inputs <= K::warps, "one input Fp per unit");
   constexpr int kThreads = S::warps * 32;
   constexpr int kPer = (K::words + kThreads - 1) / kThreads;
@@ -569,17 +611,7 @@ curve_kernel(uint32_t* __restrict__ out, uint32_t* __restrict__ line, const Oper
   const uint32_t row = live ? e / g.n : 0, j = live ? e - row * g.n : 0;
   const uint32_t r1 = row / g.r0, r0 = row - r1 * g.r0;
   uint32_t x[lh::NL / L], pw[kPer];
-  constexpr int kPt = 3 * K::comps;             // Fp values a point
-  constexpr int kPts = K::inputs - K::fps;        // the points' Fp values
-  if (u < K::inputs) {
-    const int o = u < kPts ? u / kPt : kPts / kPt + (u - kPts);
-    const int f = u < kPts ? u % kPt : 0;
-    const Geom gm = ops.geom[o];
-    const uint32_t* src = ops.ptr[o] + r1 * gm.s1 + r0 * gm.s0 + (f / K::comps) * gm.sc +
-                          (f % K::comps) * gm.sk + j * gm.sn;
-#pragma unroll
-    for (int i = 0; i < lh::NL / L; ++i) x[i] = live ? __ldg(src + (r + L * i) * gm.sl) : 0u;
-  }
+  if (u < K::inputs) fetch<L, K::inputs, K::fps, K::comps>(ops, u, r, live, r1, r0, j, x);
 #pragma unroll
   for (int k = 0; k < kPer; ++k) {
     const int i = threadIdx.x + k * kThreads;
@@ -597,19 +629,17 @@ curve_kernel(uint32_t* __restrict__ out, uint32_t* __restrict__ line, const Oper
   LH_K5_STAMP(-1, 1);
   __syncthreads();
 
-  // The levels (two for K5, three for K6), one copy of their code:
-  // products, then reductions, each into its slot (every product of the
-  // level has read the slots by the barrier between) or, the last level's
-  // and those flagged kOut, into the output (rows, 3, comps, 12, n), Fp
-  // index coordinate * comps + component, the indices past the point's
-  // into the line (K6, the same layout); both lanes of a unit hold the
-  // value and store all its limbs.
+  // The two levels, one copy of their code: products, then reductions,
+  // level 0's each into its slot (every product of the level has read the
+  // slots by the barrier between), level 1's into the output (rows, 3,
+  // comps, 12, n), Fp index coordinate * comps + component; both lanes of
+  // a unit hold the value and store all its limbs.
   const uint32_t* rec = plan;
   const long long fp = lh::NL * (long long)g.n;
 #pragma unroll 1
-  for (int level = 0; level < K::levels; ++level) {
-    const int np = level == 0 ? K::np0 : level == 1 ? K::np1 : K::np2;
-    const int nr = level == 0 ? K::nr0 : level == 1 ? K::nr1 : K::nr2;
+  for (int level = 0; level < 2; ++level) {
+    const int np = level == 0 ? K::np0 : K::np1;
+    const int nr = level == 0 ? K::nr0 : K::nr1;
     if (u < np) product<P, S::fp, L>(rec + u * kMulWords, slots, prod + u * S::wide, level, r, pair);
     LH_K5_STAMP(level, 2);
     rec += np * kMulWords;
@@ -621,9 +651,9 @@ curve_kernel(uint32_t* __restrict__ out, uint32_t* __restrict__ line, const Oper
       reduce<P, S::wide, L>(rr, prod, scratch, q, r, pair, level, v);
       LH_K5_STAMP(level, 7);
       const uint32_t dest = (rr[0] >> 8) & 0xffu;
-      if (level == K::levels - 1 || (rr[0] & kOut)) {
+      if (level == 1) {
         if (live) {
-          uint32_t* dst = (dest < kPt ? out : line) + row * (kPt * fp) + (dest % kPt) * fp + j;
+          uint32_t* dst = out + row * (3 * K::comps * fp) + dest * fp + j;
 #pragma unroll
           for (int l = 0; l < lh::NL; ++l) dst[l * (long long)g.n] = v[l];
         }
@@ -638,19 +668,135 @@ curve_kernel(uint32_t* __restrict__ out, uint32_t* __restrict__ line, const Oper
   }
 }
 
+// K6's block: P pairs, L lanes a unit, at least kUnits units a pair (whole
+// warps: `units`); a level's products and reductions run in rounds of
+// `units`. Shared memory as K5's (Shape), for both steps: their schedules
+// (the doubling's words, then the addition's), the larger slot count and
+// product count, a pair's exchange per unit, its 64-bit sums 8-byte
+// aligned for an odd P too (`scratch`, and rs rounded up to even).
+template <int P, int L, int kUnits>
+struct ChainShape {
+  using D = K6MillerDbl;
+  using A = K6MillerAdd;
+  static constexpr int V = 32 / (P * L);
+  static constexpr int warps = (kUnits + V - 1) / V;
+  static constexpr int units = warps * V;
+  static constexpr int fp = 13 * P;
+  static constexpr int wide = (L == 1 ? 25 : 43) * P;
+  static constexpr int rs = L == 1 ? 0 : (73 * P + 1) / 2 * 2;
+  static constexpr int plan = (D::words + A::words + 3) / 4 * 4;
+  static constexpr int slots = D::slots > A::slots ? D::slots : A::slots;
+  static constexpr int products = D::wide > A::wide ? D::wide : A::wide;
+  static constexpr int scratch = (plan + slots * fp + products * wide + 1) / 2 * 2;
+  static constexpr int words = scratch + units * rs;
+  static constexpr int min_blocks = L == 1 && warps * 32 <= 384 ? 2 : 1;
+};
+
+// K6: a Miller loop's T chain for one pair a point of the grid. T, Q and
+// P load once into slots 0-14; each step runs the doubling's or the
+// addition's schedule (two levels); level 1's reductions write the new T
+// into T's slots 0-5 (the output's Fp index is its slot) and, at the last
+// step, to t_out, and the line (Fp indices 6-11) to lines[step] (steps,
+// rows, 3, 2, 12, n). No step's level-0 reduction takes Q's or P's slots
+// (fused.K6_KEPT), and level 1 reads no input, so T's slots are free to
+// take level 0's values.
+template <int P, int L, int kUnits>
+__global__ void __launch_bounds__(ChainShape<P, L, kUnits>::warps * 32,
+                                  ChainShape<P, L, kUnits>::min_blocks)
+chain_kernel(uint32_t* __restrict__ t_out, uint32_t* __restrict__ lines, const Operands ops,
+             Grid g, const Steps steps) {
+  using S = ChainShape<P, L, kUnits>;
+  using D = K6MillerDbl;
+  using A = K6MillerAdd;
+  static_assert(D::inputs == A::inputs && D::fps == 3 && A::fps == 3 && D::comps == 2 &&
+                    A::comps == 2 && D::inputs <= S::units,
+                "K6's steps share their inputs, one input Fp per unit");
+  extern __shared__ __align__(16) uint32_t smem[];
+  const int r = threadIdx.x % L, up = threadIdx.x / L;
+  const int u = up / P, q = up % P;   // unit, pair
+  const unsigned pair = L == 1 ? 1u << (threadIdx.x & 31) : 3u << (threadIdx.x & 30);
+  uint32_t* plan = smem;
+  uint32_t* slots = smem + S::plan + q;
+  uint32_t* prod = smem + S::plan + S::slots * S::fp + q;
+  uint32_t* scratch = smem + S::scratch + u * S::rs;
+
+  // Load, as K5's.
+  constexpr int kThreads = S::warps * 32;
+  constexpr int kWords = D::words + A::words;
+  constexpr int kPer = (kWords + kThreads - 1) / kThreads;
+  const uint32_t e = blockIdx.x * P + q;
+  const bool live = e < g.total;
+  const uint32_t row = live ? e / g.n : 0, j = live ? e - row * g.n : 0;
+  const uint32_t r1 = row / g.r0, r0 = row - r1 * g.r0;
+  uint32_t x[lh::NL / L], pw[kPer];
+  if (u < D::inputs) fetch<L, D::inputs, D::fps, D::comps>(ops, u, r, live, r1, r0, j, x);
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const int i = threadIdx.x + k * kThreads;
+    pw[k] = i < D::words ? D::plan()[i] : i < kWords ? A::plan()[i - D::words] : 0u;
+  }
+  if (u < D::inputs) {
+#pragma unroll
+    for (int i = 0; i < lh::NL / L; ++i) slots[u * S::fp + (r + L * i) * P] = x[i];
+  }
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const int i = threadIdx.x + k * kThreads;
+    if (i < kWords) plan[i] = pw[k];
+  }
+  __syncthreads();
+
+  const long long fp = lh::NL * (long long)g.n;
+  const long long at = row * (6 * fp) + j;                  // this pair's limb 0 of Fp 0
+  const long long per_line = (long long)g.total * 6 * lh::NL;
+#pragma unroll 1
+  for (uint32_t s = 0; s < steps.count; ++s) {
+    const bool add = (steps.adds[s >> 5] >> (s & 31)) & 1u;
+    const bool last = s + 1 == steps.count;
+    const uint32_t* rec = plan + (add ? D::words : 0);
+#pragma unroll 1
+    for (int level = 0; level < 2; ++level) {
+      const int np = level == 0 ? (add ? A::np0 : D::np0) : (add ? A::np1 : D::np1);
+      const int nr = level == 0 ? (add ? A::nr0 : D::nr0) : (add ? A::nr1 : D::nr1);
+#pragma unroll 1
+      for (int k = u; k < np; k += S::units)
+        product<P, S::fp, L>(rec + k * kMulWords, slots, prod + k * S::wide, level, r, pair);
+      rec += np * kMulWords;
+      __syncthreads();
+#pragma unroll 1
+      for (int k = u; k < nr; k += S::units) {
+        const uint32_t* rr = rec + k * kRedWords;
+        uint32_t v[lh::NL];
+        reduce<P, S::wide, L>(rr, prod, scratch, q, r, pair, level, v);
+        const uint32_t dest = (rr[0] >> 8) & 0xffu;
+        if (level == 0 || dest < 6) {
+#pragma unroll
+          for (int l = 0; l < lh::NL; ++l) slots[dest * S::fp + l * P] = v[l];
+        }
+        if (level == 1 && live && (dest >= 6 || last)) {
+          uint32_t* dst = (dest < 6 ? t_out + dest * fp : lines + s * per_line + (dest - 6) * fp) + at;
+#pragma unroll
+          for (int l = 0; l < lh::NL; ++l) dst[l * (long long)g.n] = v[l];
+        }
+      }
+      rec += nr * kRedWords;
+      __syncthreads();
+    }
+  }
+}
+
 __global__ void empty_kernel() {}
 
-// Allows the kernel its dynamic shared memory on the current device, once.
-template <class K, int P, int L>
-int allow_smem() {
-  static std::atomic<unsigned long long> done{0};   // a bit per device
+// Allows `kernel` `bytes` of dynamic shared memory on the current device,
+// once per device (`done`, a bit each).
+template <class F>
+int allow_smem(F* kernel, int bytes, std::atomic<unsigned long long>& done) {
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
   const unsigned long long bit = 1ull << (dev & 63);
   if (done.load(std::memory_order_acquire) & bit) return 0;
-  e = cudaFuncSetAttribute(curve_kernel<K, P, L>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           4 * Shape<K, P, L>::words);
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e == cudaSuccess) done.fetch_or(bit, std::memory_order_acq_rel);
   return (int)e;
 }
@@ -660,59 +806,87 @@ int allow_smem() {
 // lanes a unit and 4 points a block, which spread the call over more SMs
 // and halve each lane's chains; from 1025, where the grid fills the card,
 // one lane a unit at kLaneP points a block: 32 (no divergence, no
-// exchanges) where the block stays within 576 threads, else 16 (K6's 24 and
-// 30 units a point: 384 and 480 threads, where 32 points would hold 768
-// and 960 threads of at most 85 and 68 registers).
+// exchanges) where the block stays within kLaneThreads threads (every K5
+// operation), else 16.
 constexpr long long kPairsUpTo = 1024;
 constexpr int kLaneThreads = 576;
 template <class K>
 constexpr int kLaneP = K::warps * 32 <= kLaneThreads ? 32 : 16;
 
 template <class K, int P, int L>
-int run(void* out, void* line, const Operands& ops, Grid g, void* stream) {
-  const int e = allow_smem<K, P, L>();
+int run(void* out, const Operands& ops, Grid g, void* stream) {
+  static std::atomic<unsigned long long> done{0};
+  const int e = allow_smem(curve_kernel<K, P, L>, 4 * Shape<K, P, L>::words, done);
   if (e != 0) return e;
   curve_kernel<K, P, L><<<(g.total + P - 1) / P, Shape<K, P, L>::warps * 32,
-                          4 * Shape<K, P, L>::words, (cudaStream_t)stream>>>(
-      (uint32_t*)out, (uint32_t*)line, ops, g);
+                          4 * Shape<K, P, L>::words, (cudaStream_t)stream>>>((uint32_t*)out, ops, g);
   return (int)cudaGetLastError();
 }
 
 // ops: the operands' pointers in the schedule's order (the points, then
-// P's coordinates). geom: null for dense points (each of the output's
-// shape and contiguous; K6 always passes one), else r0 and then each
-// operand's six element strides s1, s0 (the two row levels), sc
-// (coordinate), sk (component), sl (limb) and sn (column).
-template <class K>
-int launch(void* out, void* line, const void* const* ops, long long rows, long long n,
-           const long long* geom, void* stream) {
-  constexpr int kOps = (K::inputs - K::fps) / (3 * K::comps) + K::fps;
-  static_assert(kOps <= kMaxOps, "operands");
+// P's coordinates). geom: null for dense operands (each of the output's
+// shape and contiguous), else r0 and then each operand's six element
+// strides s1, s0 (the two row levels), sc (coordinate), sk (component), sl
+// (limb) and sn (column). -> 0, or cudaErrorInvalidValue for a grid past
+// 2^31 points or rows that fold into no (r1, r0).
+int operands(const void* const* ops, int count, int comps, long long rows, long long n,
+             const long long* geom, Operands* o, Grid* g) {
   const long long fp = lh::NL * n;
   const long long r0 = geom ? geom[0] : rows;
-  if (rows * n >= (1ll << 31) || r0 < 1 || rows % r0 != 0 || (K::fps && !geom))
-    return (int)cudaErrorInvalidValue;
-  Operands o{};
-  for (int k = 0; k < kOps; ++k) {
+  if (rows * n >= (1ll << 31) || r0 < 1 || rows % r0 != 0) return (int)cudaErrorInvalidValue;
+  *o = Operands{};
+  for (int k = 0; k < count; ++k) {
     const long long* s = geom ? geom + 1 + 6 * k : nullptr;
-    o.ptr[k] = (const uint32_t*)ops[k];
-    o.geom[k] = s ? Geom{s[0], s[1], s[2], s[3], s[4], s[5]}
-                  : Geom{0, 3 * K::comps * fp, K::comps * fp, fp, n, 1};
+    o->ptr[k] = (const uint32_t*)ops[k];
+    o->geom[k] = s ? Geom{s[0], s[1], s[2], s[3], s[4], s[5]}
+                   : Geom{0, 3 * comps * fp, comps * fp, fp, n, 1};
   }
-  const Grid g{(uint32_t)(rows * n), (uint32_t)n, (uint32_t)r0};
-  return rows * n <= kPairsUpTo ? run<K, 4, 2>(out, line, o, g, stream)
-                                : run<K, kLaneP<K>, 1>(out, line, o, g, stream);
+  *g = Grid{(uint32_t)(rows * n), (uint32_t)n, (uint32_t)r0};
+  return 0;
 }
 
-// An empty kernel on K's grid for (rows, n) (the layout the launcher picks:
-// its blocks and warps): the launch floor a kernel is timed against
-// (chip_smoke.py floor_ms). Not a kernel of the port.
 template <class K>
-int empty_launch(long long rows, long long n, void* stream) {
-  const long long points = rows * n;
-  const bool pairs = points <= kPairsUpTo;
-  const int p = pairs ? 4 : kLaneP<K>;
-  const int warps = pairs ? Shape<K, 4, 2>::warps : Shape<K, kLaneP<K>, 1>::warps;
+int launch(void* out, const void* const* ops, long long rows, long long n, const long long* geom,
+           void* stream) {
+  constexpr int kOps = K::inputs / (3 * K::comps);
+  static_assert(kOps <= kMaxOps && K::fps == 0, "operands");
+  Operands o;
+  Grid g;
+  const int e = operands(ops, kOps, K::comps, rows, n, geom, &o, &g);
+  if (e != 0) return e;
+  return rows * n <= kPairsUpTo ? run<K, 4, 2>(out, o, g, stream)
+                                : run<K, kLaneP<K>, 1>(out, o, g, stream);
+}
+
+// K6's layouts: up to kPairsUpTo pairs, pairs of lanes at LH_K6_PAIR_P
+// pairs a block with every unit either step's level needs (one round);
+// from 1025, where the grid fills the card, one lane a unit at 16 pairs a
+// block with the doubling's units (an addition's levels take two rounds):
+// 384 threads, two blocks an SM.
+constexpr int kChainPairP = LH_K6_PAIR_P;
+constexpr int kChainUnits =
+    K6MillerAdd::warps > K6MillerDbl::warps ? K6MillerAdd::warps : K6MillerDbl::warps;
+constexpr int kChainLaneP = 16;
+constexpr int kChainLaneUnits = K6MillerDbl::warps;
+static_assert(kChainPairP == 1 || kChainPairP == 2 || kChainPairP == 4, "LH_K6_PAIR_P");
+
+template <int P, int L, int U>
+int run_chain(void* t_out, void* lines, const Operands& ops, Grid g, const Steps& steps,
+              void* stream) {
+  using S = ChainShape<P, L, U>;
+  static std::atomic<unsigned long long> done{0};
+  const int e = allow_smem(chain_kernel<P, L, U>, 4 * S::words, done);
+  if (e != 0) return e;
+  chain_kernel<P, L, U><<<(g.total + P - 1) / P, S::warps * 32, 4 * S::words,
+                          (cudaStream_t)stream>>>((uint32_t*)t_out, (uint32_t*)lines, ops, g,
+                                                  steps);
+  return (int)cudaGetLastError();
+}
+
+// An empty kernel on a launch's grid for (rows, n) (the layout the
+// launcher picks: its blocks and warps): the launch floor a kernel is
+// timed against (chip_smoke.py floor_ms). Not a kernel of the port.
+int empty_launch(long long points, int p, int warps, void* stream) {
   empty_kernel<<<(unsigned)((points + p - 1) / p), warps * 32, 0, (cudaStream_t)stream>>>();
   return (int)cudaGetLastError();
 }
@@ -722,52 +896,68 @@ int empty_launch(long long rows, long long n, void* stream) {
 extern "C" int lh_g1_add(void* out, const void* a, const void* b, long long rows, long long n,
                          const long long* geom, void* stream) {
   const void* ops[] = {a, b};
-  return launch<K5G1Add>(out, nullptr, ops, rows, n, geom, stream);
+  return launch<K5G1Add>(out, ops, rows, n, geom, stream);
 }
 
 extern "C" int lh_g1_dbl(void* out, const void* a, long long rows, long long n,
                          const long long* geom, void* stream) {
-  return launch<K5G1Double>(out, nullptr, &a, rows, n, geom, stream);
+  return launch<K5G1Double>(out, &a, rows, n, geom, stream);
 }
 
 extern "C" int lh_g2_add(void* out, const void* a, const void* b, long long rows, long long n,
                          const long long* geom, void* stream) {
   const void* ops[] = {a, b};
-  return launch<K5G2Add>(out, nullptr, ops, rows, n, geom, stream);
+  return launch<K5G2Add>(out, ops, rows, n, geom, stream);
 }
 
 extern "C" int lh_g2_dbl(void* out, const void* a, long long rows, long long n,
                          const long long* geom, void* stream) {
-  return launch<K5G2Double>(out, nullptr, &a, rows, n, geom, stream);
+  return launch<K5G2Double>(out, &a, rows, n, geom, stream);
 }
 
-// K6: 2T (into out) and the tangent line at T evaluated at P (into line),
-// T (rows, 3, 2, 12, n), px, py, pz (rows, 12, n), as the geometry says.
-extern "C" int lh_miller_dbl(void* out, void* line, const void* t, const void* px,
-                             const void* py, const void* pz, long long rows, long long n,
-                             const long long* geom, void* stream) {
-  const void* ops[] = {t, px, py, pz};
-  return launch<K6MillerDbl>(out, line, ops, rows, n, geom, stream);
-}
-
-// K6: T + Q and the line through T and Q evaluated at P.
-extern "C" int lh_miller_add(void* out, void* line, const void* t, const void* q,
-                             const void* px, const void* py, const void* pz, long long rows,
-                             long long n, const long long* geom, void* stream) {
+// K6: `count` Miller steps from T (rows, 3, 2, 12, n) with Q and P's
+// coordinates px, py, pz (rows, 12, n), as the geometry says (always
+// given); kinds[s] is 0 for a doubling, 1 for an addition. The last T
+// goes to t_out (rows, 3, 2, 12, n), step s's line to lines + s (rows, 3,
+// 2, 12, n) elements.
+extern "C" int lh_miller_chain(void* t_out, void* lines, const void* t, const void* q,
+                               const void* px, const void* py, const void* pz, long long rows,
+                               long long n, const unsigned char* kinds, long long count,
+                               const long long* geom, void* stream) {
+  if (count < 1 || count > kMaxSteps || !geom) return (int)cudaErrorInvalidValue;
+  Steps steps{};
+  steps.count = (uint32_t)count;
+  for (int s = 0; s < count; ++s)
+    if (kinds[s]) steps.adds[s >> 5] |= 1u << (s & 31);
   const void* ops[] = {t, q, px, py, pz};
-  return launch<K6MillerAdd>(out, line, ops, rows, n, geom, stream);
+  Operands o;
+  Grid g;
+  const int e = operands(ops, kMaxOps, 2, rows, n, geom, &o, &g);
+  if (e != 0) return e;
+  return rows * n <= kPairsUpTo
+             ? run_chain<kChainPairP, 2, kChainUnits>(t_out, lines, o, g, steps, stream)
+             : run_chain<kChainLaneP, 1, kChainLaneUnits>(t_out, lines, o, g, steps, stream);
 }
 
-// The floors: an empty kernel on G1 add's grid (K5) and on the doubling
-// step's (K6).
+// The floors: an empty kernel on G1 add's grid (K5) and on the chain's
+// (K6).
 extern "C" int lh_curve_empty(void* out, long long rows, long long n, void* stream) {
   (void)out;
-  return empty_launch<K5G1Add>(rows, n, stream);
+  const long long points = rows * n;
+  return points <= kPairsUpTo
+             ? empty_launch(points, 4, Shape<K5G1Add, 4, 2>::warps, stream)
+             : empty_launch(points, kLaneP<K5G1Add>,
+                            Shape<K5G1Add, kLaneP<K5G1Add>, 1>::warps, stream);
 }
 
 extern "C" int lh_miller_empty(void* out, long long rows, long long n, void* stream) {
   (void)out;
-  return empty_launch<K6MillerDbl>(rows, n, stream);
+  const long long points = rows * n;
+  return points <= kPairsUpTo
+             ? empty_launch(points, kChainPairP, ChainShape<kChainPairP, 2, kChainUnits>::warps,
+                            stream)
+             : empty_launch(points, kChainLaneP,
+                            ChainShape<kChainLaneP, 1, kChainLaneUnits>::warps, stream);
 }
 
 #ifdef LH_K5_STAMPS

@@ -16,10 +16,11 @@ XLA field/tower products they fuse, ``ops/limbs.py`` / ``ops/tower.py``
                              csrc/curve_op.cu  no Pallas counterpart: the complete group
                                                law XLA fuses (ops/bm/curves.py:100 add,
                                                :122 double)
-    K6  miller_dbl / miller_add
+    K6  miller_chain / miller_dbl / miller_add
                              csrc/curve_op.cu  no Pallas counterpart: the Miller-loop steps
                                                XLA fuses (ops/bm/pairing.py:24 _dbl_step,
-                                               :63 _add_step), on K5's engine
+                                               :63 _add_step, scans at :107 / :112), on
+                                               K5's engine: a loop's whole T chain a launch
     K7  fp_inv / fp_pow / fp2_pow
                              csrc/fp_pow.cu    no Pallas counterpart: the Fp inverse and the
                                                public-exponent powers XLA fuses into one
@@ -71,9 +72,11 @@ a point, bound by operations, but at the paths' widths (16-4096 points) it
 is its launch floor plus one block's critical path: its schedule
 (``k5_schedule``) runs each level's independent Fp products on parallel
 units (lanes or pairs of lanes) of a block, with intermediates in shared
-memory. K6 runs a Miller step's G2 doubling or addition and its line at P
-as three levels of the same schedule: 10,368 and 14,400 multiply-adds a
-pair against 1,008 and 1,296 bytes, bound by operations. K7 runs a whole
+memory. K6 runs a Miller loop's whole T chain in one launch (63 doubling
+and 5 addition steps, each its G2 doubling or addition and its line at P
+in two levels of the same schedule, T, Q and P kept in shared memory, the
+68 lines written to one buffer): 10,368 and 14,400 multiply-adds a pair a
+step, bound by operations. K7 runs a whole
 chain a call: the Fp inverse as a binary GCD (1,110 divsteps in batches of
 30, one lane an element, one Montgomery product at the end), a 4-bit
 fixed-window power (Fp: one lane an element; Fp2, its exponent split at p,
@@ -89,7 +92,7 @@ from functools import lru_cache
 
 import torch
 
-from ..crypto.bls.constants import P
+from ..crypto.bls.constants import BLS_X_ABS, P
 from . import _build
 
 NL = 12
@@ -102,7 +105,8 @@ launches = {
     "fp12_sqr": 0, "fp12_mul": 0, "fp12_line": 0,
     "fp_add": 0, "fp_sub": 0, "fp_neg": 0, "fp_mul_small": 0,
     "g1_add": 0, "g1_double": 0, "g2_add": 0, "g2_double": 0,
-    "miller_dbl": 0, "miller_add": 0, "fp_inv": 0, "fp_pow": 0, "fp2_pow": 0,
+    "miller_dbl": 0, "miller_add": 0, "miller_chain": 0, "fp_inv": 0, "fp_pow": 0,
+    "fp2_pow": 0,
 }
 
 
@@ -545,12 +549,12 @@ def fp_mul_small_plain(a, k: int):
 #
 # K5 (csrc/curve_op.cu) runs one complete Renes-Costello-Batina addition or
 # doubling (a = 0) per point in two levels, and K6 (the same source, the same
-# engine) one Miller-loop step per pair in three: a level is a step of
-# independent Fp products and then a step of reductions, one unit of the
-# block (a lane, or a pair of lanes, of a warp) per product and per reduced
-# Fp value. The schedule is written here once per operation, from the
-# formulas of curves._Group (``_add_plain`` / ``_double_plain``) and
-# pairing (``_dbl_step_plain`` / ``_add_step_plain``), and handed to the
+# engine) a Miller loop's chain of steps per pair, each step in two: a level
+# is a step of independent Fp products and then a step of reductions, one
+# unit of the block (a lane, or a pair of lanes, of a warp) per product and
+# per reduced Fp value. The schedule is written here once per operation,
+# from the formulas of curves._Group (``_add_plain`` / ``_double_plain``)
+# and pairing (``_dbl_step_plain`` / ``_add_step_plain``), and handed to the
 # kernel as the generated header curve_plan.h:
 #
 #   product   W = A B, 24 limbs, unreduced; A and B are each a linear
@@ -566,24 +570,33 @@ def fp_mul_small_plain(a, k: int):
 # An Fp2 product is Karatsuba's three Fp products (a square two:
 # (a0 + a1)(a0 - a1) and 2 a0 a1), and a reduction folds the Fp2
 # reduction and the formula's sums of products (xi, small multiples, the
-# line's negation) into one REDC. A reduction goes to a slot, the lowest
-# one that no later level reads (every product of its level has read the
-# slots by then), or to the output, Fp index coordinate * comps +
-# component of the result point, then of the line (K6): the last level's
-# always, an earlier level's where its destination carries K5_OUT.
+# line's negation) into one REDC; where a coefficient sum would pass the
+# bound, the small multiple goes into an operand instead. Level 0's
+# reductions go to slots, each the lowest one that no later level reads
+# (every product of its level has read the slots by then) and, in K6, none
+# of Q's and P's, which every step reads. Level 1's go to the output, Fp
+# index coordinate * comps + component of the result point, then of the
+# line (K6); K6 also keeps the point in T's slots, Fp index = slot, for its
+# next step.
 #
 # Words per product: K5_LIN per operand, a term kHas | slot | |c| << 8 |
 # (c < 0) << 24, then zeros. Per reduction: a head o | destination << 8 |
-# terms << 16 (K5_OUT at bit 24), then K5_RED terms kHas | product | |d| << 8
-# | (d < 0) << 16.
+# terms << 16, then K5_RED terms kHas | product | |d| << 8 | (d < 0) << 16.
 
 K5_OPS = ("g1_add", "g1_double", "g2_add", "g2_double")
-K6_OPS = ("miller_dbl", "miller_add")
+K6_OPS = ("miller_dbl", "miller_add")   # the steps of K6's chain
+K6_INPUTS = 15                          # T's 6 Fp values, Q's 6, px, py, pz
+K6_KEPT = frozenset(range(6, K6_INPUTS))   # Q and P: in their slots for every step
 K5_LIN = 4
 K5_RED = 9
 K5_HAS = 1 << 31
-K5_OUT = 1 << 16                       # a destination flag: to the output
 K5_REDC_BOUND = P << R_BITS            # REDC is canonical for 0 <= T < p 2^384
+
+# The Miller loop's steps over the bits of |x| after the leading one: a
+# doubling a bit, then an addition where the bit is 1 (63 and 5): 0 is a
+# doubling, 1 an addition.
+MILLER_STEPS = tuple(k for c in bin(BLS_X_ABS)[3:] for k in ((0, 1) if c == "1" else (0,)))
+K6_MAX_STEPS = 128                     # csrc/curve_op.cu kMaxSteps
 
 
 def _k5_inv_hi() -> float:
@@ -670,35 +683,32 @@ class _K5Level:
 
 class _K5Plan:
     """A schedule being written: its inputs (Fp values of the points, then
-    of P) and its levels."""
+    of P), the inputs no slot may take (`kept`) and its two levels."""
 
-    def __init__(self, comps: int, points: int, fps: int, levels: int):
-        self.comps, self.n_out = comps, 0
+    def __init__(self, comps: int, points: int, fps: int, kept=frozenset()):
+        self.comps, self.n_out, self.kept = comps, 0, kept
         pt = [tuple({comps * i + c: 1} for c in range(comps)) for i in range(3 * points)]
         self.points = [pt[3 * k:3 * k + 3] for k in range(points)]
         base = 3 * comps * points
         self.fps = [({base + i: 1},) for i in range(fps)]
         self.inputs = base + fps
-        self.levels = [_K5Level(self, i) for i in range(levels)]
+        self.levels = [_K5Level(self, i) for i in range(2)]
 
     def finish(self):
         """-> the levels [(products, reductions)] with the slots placed."""
         where = {i: i for i in range(self.inputs)}
-        for lv in self.levels:
-            later = {k for up in self.levels[lv.index + 1:]
-                     for x, y in up.products for k in (*x, *y)}
-            busy = {where[k] for k in later if k in where}
-            free = (i for i in range(256) if i not in busy)
-            for dest, _, _, out in lv.reds:
-                if not out:
-                    where[dest] = next(free)
-        last = len(self.levels) - 1
+        l0, l1 = self.levels
+        if any(out for *_, out in l0.reds) or not all(out for *_, out in l1.reds):
+            raise AssertionError("K5: level 0 reduces into slots, level 1 to the output")
+        busy = {where[k] for x, y in l1.products for k in (*x, *y) if k in where} | self.kept
+        free = (i for i in range(256) if i not in busy)
+        for dest, *_ in l0.reds:
+            where[dest] = next(free)
         levels = []
         for lv in self.levels:
             products = [tuple({where[k]: c for k, c in lin.items()} for lin in xy)
                         for xy in lv.products]
-            reds = [(dest | (K5_OUT if lv.index < last else 0) if out else where[dest], off, sums)
-                    for dest, off, sums, out in lv.reds]
+            reds = [(dest if out else where[dest], off, sums) for dest, off, sums, out in lv.reds]
             levels.append((products, reds))
         return levels
 
@@ -735,21 +745,16 @@ def _rcb_add(l0, l1, p, q, b3):
               out=True)
 
 
-def _line(l2, a0, a1, a2, px, py, pz):
-    """The line's last level: l0 = a0 py, l1 = a1 pz, l2 = -(a2 px), six Fp
-    products by P's coordinates, to the output after the point."""
-    l2.reduce(l2.mul_fp(a0, py), l2.mul_fp(a1, pz), _comb((-1, l2.mul_fp(a2, px))), out=True)
-
-
 def k5_schedule(op: str):
-    """-> (components per coordinate, the levels [(products, reductions)]):
-    a product (A, B), each {slot: coefficient}; a reduction (destination,
-    offset o, {product: d})."""
+    """-> (components per coordinate, the two levels [(products,
+    reductions)]): a product (A, B), each {slot: coefficient}; a reduction
+    (destination, offset o, {product: d})."""
     comps = 2 if op.startswith(("g2", "miller")) else 1
     add = op.endswith("_add")
     miller = op in K6_OPS
-    plan = _K5Plan(comps, 2 if add else 1, 3 if miller else 0, 3 if miller else 2)
-    l0, l1 = plan.levels[:2]
+    plan = (_K5Plan(comps, 2, 3, K6_KEPT) if miller
+            else _K5Plan(comps, 2 if add else 1, 0))
+    l0, l1 = plan.levels
 
     def b3(x):                                  # [3b] x: 12 x (G1), 12 xi x (G2)
         return _comb((12, x)) if comps == 1 else _xi(x, 12)
@@ -759,25 +764,30 @@ def k5_schedule(op: str):
     else:
         (t0, t1, _, _), (q0, q1, q2, q3) = _rcb_double(l0, l1, plan.points[0], b3)
         l1.reduce(_comb((2, q3)), _comb((1, q0), (1, q2)), q1, out=True)
+    if miller:
+        px, py, pz = plan.fps
     if miller and add:
-        # The line through T and Q (pairing._add_step_plain): n = yq Z1 -
-        # Y1 zq, d = xq Z1 - X1 zq; l0 = xi d Z1 py, l1 = (n X1 - d Y1) pz,
-        # l2 = -(n Z1) px.
+        # The line through T and Q (pairing._add_step_plain), P's products
+        # at level 0: n = yq Z1 - Y1 zq, d = xq Z1 - X1 zq; l0 = xi d (Z1
+        # py), l1 = n (X1 pz) - d (Y1 pz), l2 = -n (Z1 px).
         (X1, Y1, Z1), (xq, yq, zq) = plan.points
         a, b = l0.mul(yq, Z1), l0.mul(xq, Z1)
         c, d = l0.mul(Y1, zq), l0.mul(X1, zq)
         n, d = l0.reduce(_comb((1, a), (-1, c)), _comb((1, b), (-1, d)))
-        dZ1, nX1, nZ1, dY1 = l1.mul(d, Z1), l1.mul(n, X1), l1.mul(n, Z1), l1.mul(d, Y1)
-        a0, a2, a1 = l1.reduce(_xi(dZ1), nZ1, _comb((1, nX1), (-1, dY1)))
-        _line(plan.levels[2], a0, a1, a2, *plan.fps)
+        z1py, z1px, x1pz, y1pz = l0.reduce(l0.mul_fp(Z1, py), l0.mul_fp(Z1, px),
+                                           l0.mul_fp(X1, pz), l0.mul_fp(Y1, pz))
+        l1.reduce(_xi(l1.mul(d, z1py)), _comb((1, l1.mul(n, x1pz)), (-1, l1.mul(d, y1pz))),
+                  _comb((-1, l1.mul(n, z1px))), out=True)
     elif miller:
-        # The tangent line at T (pairing._dbl_step_plain): l0 = 2 xi YZ^2
-        # py, l1 = (3 X^3 - 2 Y^2 Z) pz, l2 = -(3 X^2 Z) px.
+        # The tangent line at T (pairing._dbl_step_plain), P's products at
+        # level 0: l0 = 2 xi (YZ)(Z py), l1 = (3 X^2)(X pz) - (2 Y^2)(Z pz),
+        # l2 = -(3 X^2)(Z px), the multiples in the operands.
         X, Y, Z = plan.points[0]
-        (X2,) = l0.reduce(l0.sqr(X))
-        x3, yz2, y2z, x2z = l1.mul(X2, X), l1.mul(t1, Z), l1.mul(t0, Z), l1.mul(X2, Z)
-        a0, a2, x3, y2z = l1.reduce(_xi(yz2, 2), _comb((3, x2z)), x3, y2z)
-        _line(plan.levels[2], a0, _comb((3, x3), (-2, y2z)), a2, *plan.fps)
+        X2, zpy, zpx, xpz, zpz = l0.reduce(l0.sqr(X), l0.mul_fp(Z, py), l0.mul_fp(Z, px),
+                                           l0.mul_fp(X, pz), l0.mul_fp(Z, pz))
+        x2t, y2t = _comb((3, X2)), _comb((2, t0))
+        l1.reduce(_xi(l1.mul(t1, zpy), 2), _comb((1, l1.mul(x2t, xpz)), (-1, l1.mul(y2t, zpz))),
+                  _comb((-1, l1.mul(x2t, zpx))), out=True)
     levels = plan.finish()
     _k5_check(levels)
     return comps, levels
@@ -798,7 +808,7 @@ def _k5_check(levels):
                 raise AssertionError(f"K5 reduction out of range: {sums}")
             if pos * (P - 1) ** 2 + off * P * P >= K5_REDC_BOUND:
                 raise AssertionError(f"K5 reduction above REDC's bound: {sums}")
-            if not 0 <= dest & ~K5_OUT < 256:
+            if not 0 <= dest < 256:
                 raise AssertionError(f"K5 destination out of range: {dest}")
 
 
@@ -818,20 +828,16 @@ def k5_plan_words(op: str):
 
 def k5_counts(op: str) -> dict:
     """The counts of op's struct in curve_plan.h: components, input Fp values
-    (fps of them P's), levels, products and reductions per level (three
-    levels; 0 past the last), slots, the widest level's products, the
-    units a point (warps) and the schedule's words."""
+    (fps of them P's), products and reductions per level, slots, the widest
+    level's products, the units a point (warps) and the schedule's words."""
     comps, levels = k5_schedule(op)
     fps = 3 if op in K6_OPS else 0
-    inputs = (2 if op.endswith("_add") else 1) * 3 * comps + fps
-    last = len(levels) - 1
-    slots = max([inputs] + [d + 1 for i, (_, reds) in enumerate(levels) if i < last
-                            for d, _, _ in reds if not d & K5_OUT])
+    inputs = K6_INPUTS if op in K6_OPS else (2 if op.endswith("_add") else 1) * 3 * comps
+    slots = max([inputs] + [d + 1 for d, _, _ in levels[0][1]])
     per = {}
-    for i in range(3):
-        products, reds = levels[i] if i < len(levels) else ([], [])
+    for i, (products, reds) in enumerate(levels):
         per[f"np{i}"], per[f"nr{i}"] = len(products), len(reds)
-    return {"comps": comps, "inputs": inputs, "fps": fps, "levels": len(levels), **per,
+    return {"comps": comps, "inputs": inputs, "fps": fps, **per,
             "slots": slots, "wide": max(len(p) for p, _ in levels),
             "warps": max([inputs] + [max(len(p), len(r)) for p, r in levels]),
             "words": len(k5_plan_words(op))}
@@ -896,8 +902,21 @@ def _miller_plain(step: str):
     return plain
 
 
+def miller_chain_plain(t, q, px, py, pz, steps=MILLER_STEPS):
+    """K6's chain, plain: pairing's step compositions in `steps`' order
+    (0 a doubling, 1 an addition of Q) -> (the last T, the lines stacked,
+    (len(steps), ..., 3, 2, 12, n))."""
+    from . import pairing
+    lines = []
+    for add in steps:
+        t, line = (pairing._add_step_plain(t, q, px, py, pz) if add
+                   else pairing._dbl_step_plain(t, px, py, pz))
+        lines.append(line)
+    return t, torch.stack(lines)
+
+
 PLAIN.update(miller_dbl=_miller_plain("_dbl_step_plain"),
-             miller_add=_miller_plain("_add_step_plain"))
+             miller_add=_miller_plain("_add_step_plain"), miller_chain=miller_chain_plain)
 
 
 def pow_digits(exponent: int) -> list:
@@ -988,9 +1007,11 @@ _KERNELS = {
     "g1_double": ("curve_op", "lh_g1_dbl", ("g1",)),
     "g2_add": ("curve_op", "lh_g2_add", ("g2", "g2")),
     "g2_double": ("curve_op", "lh_g2_dbl", ("g2",)),
-    # K6 (the same library) launches through _run_miller.
-    "miller_dbl": ("curve_op", "lh_miller_dbl", ("g2", "fp", "fp", "fp")),
-    "miller_add": ("curve_op", "lh_miller_add", ("g2", "g2", "fp", "fp", "fp")),
+    # K6 (the same library, one kernel) launches through _run_miller: the
+    # chain, and its one-step calls.
+    "miller_dbl": ("curve_op", "lh_miller_chain", ("g2", "fp", "fp", "fp")),
+    "miller_add": ("curve_op", "lh_miller_chain", ("g2", "g2", "fp", "fp", "fp")),
+    "miller_chain": ("curve_op", "lh_miller_chain", ("g2", "g2", "fp", "fp", "fp")),
     # K7: the inverse launches through _run, the powers through _run_pow.
     "fp_inv": ("fp_pow", "lh_fp_inv", ("fp",)),
     "fp_pow": ("fp_pow", "lh_fp_pow", ("fp",)),
@@ -1332,18 +1353,33 @@ def g2_double(p):
 # with a G2 point's tail, its coordinate and component axes of size 1
 # (stride 0), so that one geometry (K5's six strides) addresses the point
 # operands and P's coordinates alike, strided (p_proj.select(-3, i)) or
-# broadcast in place. The outputs are two dense tensors of the result
-# point's shape: the point, and the line (l0, l1, l2) in the layout K3's
-# fp12_mul_line reads.
+# broadcast in place. One kernel runs a chain of steps: the Miller loop's
+# (MILLER_STEPS), or one step (a doubling, whose launch takes T in Q's
+# place, unread). The outputs are two dense tensors: the last T, of the
+# operands' broadcast shape, and the lines, one a step in the layout K3's
+# fp12_mul_line reads, (steps, ..., 3, 2, 12, n). The steps reach the
+# kernel as launch arguments (one bit a step), so a graph that captured a
+# launch replays the same chain.
 
+_K6_STEPS = {"miller_dbl": (0,), "miller_add": (1,), "miller_chain": MILLER_STEPS}
+_K6_KINDS = ("g2", "g2", "fp", "fp", "fp")
 _K6_GEOMETRY: dict = {}      # (name, (shape, strides) per operand) -> launch geometry
 
 
-def _k6_geometry(name, xs):
-    """(output shape, rows, n, geometry array or None) of one K6 launch;
-    None where the operands' lead axes fold into no two levels."""
-    views = [x if kind == "g2" else x[..., None, None, :, :]
-             for x, kind in zip(xs, _KERNELS[name][2])]
+@lru_cache(maxsize=None)
+def _k6_steps(name):
+    """name's steps as the C entry point reads them: a byte a step."""
+    steps = _K6_STEPS[name]
+    if not 0 < len(steps) <= K6_MAX_STEPS:
+        raise ValueError(f"{name}: {len(steps)} steps, the kernel takes 1 to {K6_MAX_STEPS}")
+    return (ctypes.c_uint8 * len(steps))(*steps)
+
+
+def _k6_geometry(xs):
+    """(T's shape, rows, n, geometry array or None) of one K6 launch on
+    the operands (T, Q, px, py, pz); None where their lead axes fold into
+    no two levels."""
+    views = [x if kind == "g2" else x[..., None, None, :, :] for x, kind in zip(xs, _K6_KINDS)]
     shape = views[0].shape
     for v in views[1:]:
         shape = _broadcast_shape(shape, v.shape)
@@ -1354,29 +1390,34 @@ def _k6_geometry(name, xs):
 
 
 def _k6_args(name, xs):
-    """The outputs (point, line) of one K6 launch and the C entry point's
-    arguments but the stream: both outputs' and the operands' data pointers,
-    rows, n and the geometry (always given: r0, then per operand s1, s0 and
-    the coordinate, component, limb and column strides). Also returns the
-    operands the pointers refer to, which the caller keeps alive over the
-    launch. The geometry is kept per operand shapes and strides: a path
-    gives K6 a handful of them, each thousands of times."""
+    """The outputs (T, lines) of one K6 launch and the C entry point's
+    arguments but the stream: both outputs' and the operands' (T, Q, px,
+    py, pz) data pointers, rows, n, the steps and their count, and the
+    geometry (always given: r0, then per operand s1, s0 and the coordinate,
+    component, limb and column strides). Also returns the operands the
+    pointers refer to, which the caller keeps alive over the launch. The
+    geometry is kept per operand shapes and strides: a path gives K6 a
+    handful of them."""
+    if name == "miller_dbl":                    # no Q: T in its place, unread
+        xs = (xs[0],) + tuple(xs)
     key = (name,) + tuple((x.shape, x.stride()) for x in xs)
     geo = _K6_GEOMETRY.get(key)
     if geo is None:
-        geo = _k6_geometry(name, xs)
+        geo = _k6_geometry(xs)
         if geo[3] is None:                      # copied dense over the lead axes
             lead = geo[0][:-4]
             xs = [x.expand(lead + x.shape[-4 if kind == "g2" else -2:]).contiguous()
-                  for x, kind in zip(xs, _KERNELS[name][2])]
-            geo = _k6_geometry(name, xs)
+                  for x, kind in zip(xs, _K6_KINDS)]
+            geo = _k6_geometry(xs)
         elif len(_K6_GEOMETRY) < 256:
             _K6_GEOMETRY[key] = geo
     shape, rows, n, geom = geo
+    steps = _k6_steps(name)
     out = torch.empty(shape, dtype=torch.int32, device=xs[0].device)
-    line = torch.empty(shape, dtype=torch.int32, device=xs[0].device)
-    args = [out.data_ptr(), line.data_ptr()] + [x.data_ptr() for x in xs] + [rows, n, geom]
-    return (out, line), xs, args
+    lines = torch.empty((len(steps),) + shape, dtype=torch.int32, device=xs[0].device)
+    args = ([out.data_ptr(), lines.data_ptr()] + [x.data_ptr() for x in xs]
+            + [rows, n, steps, len(steps), geom])
+    return (out, lines), xs, args
 
 
 def _run_miller(name, xs):
@@ -1385,21 +1426,30 @@ def _run_miller(name, xs):
         return PLAIN[name](*xs)
     if dev.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {dev}")
-    outs, _inputs, args = _k6_args(name, xs)
-    if outs[0].numel():
+    (out, lines), _inputs, args = _k6_args(name, xs)
+    if out.numel():
         _call_kernel(name, args, dev)
-    return outs
+    return (out, lines) if name == "miller_chain" else (out, lines[0])
+
+
+def miller_chain(t, q, px, py, pz):
+    """K6: the Miller loop's T chain, MILLER_STEPS from T (..., 3, 2, 12, n)
+    with Q (the same tail) and P's coordinates (..., 12, n), broadcast, one
+    launch -> (the last T, the lines (68, ..., 3, 2, 12, n): line s is
+    step s's l0, l1, l2 at P)."""
+    return _run_miller("miller_chain", (t, q, px, py, pz))
 
 
 def miller_dbl(t, px, py, pz):
-    """K6: the Miller loop's doubling step, T (..., 3, 2, 12, n) and P's
-    coordinates (..., 12, n), broadcast -> (2T, the tangent line at T
-    evaluated at P, (..., 3, 2, 12, n): l0, l1, l2)."""
+    """K6, one step: the Miller loop's doubling step, T (..., 3, 2, 12, n)
+    and P's coordinates (..., 12, n), broadcast -> (2T, the tangent line at
+    T evaluated at P, (..., 3, 2, 12, n): l0, l1, l2)."""
     return _run_miller("miller_dbl", (t, px, py, pz))
 
 
 def miller_add(t, q, px, py, pz):
-    """K6: the addition step -> (T + Q, the line through T and Q at P)."""
+    """K6, one step: the addition step -> (T + Q, the line through T and Q
+    at P)."""
     return _run_miller("miller_add", (t, q, px, py, pz))
 
 
@@ -1473,6 +1523,6 @@ WRAPPERS = {
     "fp12_sqr": fp12_sqr, "fp12_mul": fp12_mul, "fp12_line": fp12_mul_line,
     "fp_add": fp_add, "fp_sub": fp_sub, "fp_neg": fp_neg, "fp_mul_small": fp_mul_small,
     "g1_add": g1_add, "g1_double": g1_double, "g2_add": g2_add, "g2_double": g2_double,
-    "miller_dbl": miller_dbl, "miller_add": miller_add, "fp_inv": fp_inv, "fp_pow": fp_pow,
-    "fp2_pow": fp2_pow,
+    "miller_dbl": miller_dbl, "miller_add": miller_add, "miller_chain": miller_chain,
+    "fp_inv": fp_inv, "fp_pow": fp_pow, "fp2_pow": fp2_pow,
 }

@@ -8,11 +8,13 @@ x-chain final exponentiation. Pairs ride the minor axis: P (..., 3, 12, n),
 Q (..., 3, 2, 12, n); the per-pair Miller values are multiplied together
 along the minor axis into ONE final exponentiation.
 
-Every Miller step is one K6 launch (the G2 doubling or addition with its
-line evaluated at P) and one K3 sparse-line product, a doubling step also
-one K3 square; the final exponentiation is K3 squares and products. K6's
-plain versions (``_dbl_step_plain`` / ``_add_step_plain``) are the step
-formulas on the plain versions of the field kernels, which the CPU takes.
+A Miller loop's T chain (its 63 G2 doublings and 5 additions, each with
+its line evaluated at P) is one K6 launch that writes the 68 lines; then
+each step is one K3 sparse-line product, a doubling step also one K3
+square; the final exponentiation is K3 squares and products. K6's plain
+versions (``_dbl_step_plain`` / ``_add_step_plain``, and
+``fused.miller_chain_plain`` over them) are the step formulas on the plain
+versions of the field kernels, which the CPU takes.
 """
 
 import torch
@@ -22,17 +24,6 @@ from . import curves as cv
 from . import fused
 from . import limbs as lb
 from . import tower as tw
-
-# Doubling runs of the Miller loop over the bits of |x|, each followed by
-# an addition step, then trailing doublings (ops/pairing.py:45-53).
-_DBL_RUNS = []
-_count = 0
-for _c in bin(BLS_X_ABS)[3:]:
-    _count += 1
-    if _c == "1":
-        _DBL_RUNS.append(_count)
-        _count = 0
-_TAIL_DBLS = _count
 
 # Hard-part decomposition (ops/pairing.py:205-217): with x the (negative)
 # BLS parameter and e = (x - 1)^2 / 3,
@@ -103,12 +94,14 @@ def _times_p(g, xs, ps):
 
 def _dbl_step(t, px, py, pz):
     """2T and the line through T tangent at T, evaluated at P, (..., 3, 2,
-    12, n): one K6 launch on the card (fused.miller_dbl)."""
+    12, n): K6's one-step call (fused.miller_dbl). No path runs it: the
+    Miller loop runs its steps as one chain."""
     return fused.miller_dbl(t, px, py, pz)
 
 
 def _add_step(t, q, px, py, pz):
-    """T + Q and the line through T and Q, evaluated at P: one K6 launch."""
+    """T + Q and the line through T and Q, evaluated at P: K6's one-step
+    call."""
     return fused.miller_add(t, q, px, py, pz)
 
 
@@ -123,20 +116,12 @@ def _miller_loop(p_proj, q_proj):
     px, py, pz = p_proj.select(-3, 0), p_proj.select(-3, 1), p_proj.select(-3, 2)
     one = tw.consts(p_proj.device).fp12_one
     acc = one.expand(px.shape[:-2] + one.shape[:-1] + px.shape[-1:]).contiguous()
-    t = q_proj
-
-    def dbl(acc, t):
-        acc = tw.fp12_sqr(acc)
-        t, line = _dbl_step(t, px, py, pz)
-        return tw.fp12_mul_line(acc, line), t
-
-    for run in _DBL_RUNS:
-        for _ in range(run):
-            acc, t = dbl(acc, t)
-        t, line = _add_step(t, q_proj, px, py, pz)
-        acc = tw.fp12_mul_line(acc, line)
-    for _ in range(_TAIL_DBLS):
-        acc, t = dbl(acc, t)
+    # The T chain over the bits of |x| (ops/pairing.py:45-53), one launch.
+    _, lines = fused.miller_chain(q_proj, q_proj, px, py, pz)
+    for s, add in enumerate(fused.MILLER_STEPS):
+        if not add:
+            acc = tw.fp12_sqr(acc)
+        acc = tw.fp12_mul_line(acc, lines[s])
     return acc
 
 

@@ -392,8 +392,8 @@ def test_header_counts_and_words():
         counts = dict(re.findall(r"(\w+) = (\d+)", block[:block.index("};")]))
         inputs = (2 if op.endswith("_add") else 1) * 3 * comps
         assert {k: int(v) for k, v in counts.items()} == {
-            "comps": comps, "inputs": inputs, "fps": 0, "levels": 2, "np0": len(p0),
-            "nr0": len(r0), "np1": len(p1), "nr1": len(r1), "np2": 0, "nr2": 0,
+            "comps": comps, "inputs": inputs, "fps": 0, "np0": len(p0),
+            "nr0": len(r0), "np1": len(p1), "nr1": len(r1),
             "slots": max(inputs, len(r0)), "wide": max(len(p0), len(p1)),
             "warps": max(len(p0), len(r0), len(p1), len(r1)), "words": len(words)}
         assert int(counts["inputs"]) <= int(counts["warps"])    # one input Fp per unit
