@@ -20,11 +20,15 @@ Phases, each printing one JSON line:
             calls) T and Q G2's edge points with P's coordinates
             p.select(-3, i) of one tensor, and K4 is held
             at every edge pair at once at (12, m) and (m, 12, 1), mul_small
-            at each k of K4_EDGE_KS (k_edges). K1, K2 and K4 are also timed
-            at the paths' heavy operand shapes (K1_SHAPES with KZG's ladder
-            shapes, K2_SHAPES, K4_SHAPES, K5_SHAPES, K6_SHAPES: the chain
-            and both one-step calls at n = 2, 65, 4097 and 16385 pairs),
-            each beside floor_ms,
+            at each k of K4_EDGE_KS (k_edges). K4's linear combinations
+            (fp_lincomb) are held at every plan the paths register
+            (fused.LINCOMB_PLANS) at each n, the edge pairs in their terms'
+            first columns, and at LINCOMB_WORST's bound rows with every term
+            p - 1, 0 and edge pairs; timed per plan at LINCOMB_NS. K1-K4 are
+            also timed at the paths' heavy operand shapes (K1_SHAPES with
+            KZG's ladder shapes, K2_SHAPES, K3_SHAPES, K4_SHAPES, K5_SHAPES,
+            K6_SHAPES: the chain and both one-step calls at n = 2, 65, 4097
+            and 16385 pairs), each beside floor_ms,
             an empty kernel on its library's grid timed the same way (also
             at every n). K7 (the inverse and the powers) is held at
             K7_SHAPES instead of the n above, the powers at each exponent
@@ -51,7 +55,10 @@ Phases, each printing one JSON line:
             been launched (but OFF_PATH's, which no path launches since K6,
             its chain and K7's inverse),
             and none of OFF_PAIRING at the pairing's m + 1 = 65 pairs; a warm
-            call must launch nothing from Python. Then
+            call must launch nothing from Python. K4's launches in the eager
+            verify (k4_family, by entry point) must stay within K4_CEILING:
+            32 a verify, 16 in h2g2 (n = m) and 16 in the final
+            exponentiation (n = 1). Then
             the eager run split into its stages for their wall times, and
             through the API: the same batch with one poisoned set in a
             shared-message group False, 256 one-key sets with distinct
@@ -76,7 +83,8 @@ Phases, each printing one JSON line:
             True: as in verify, a watched eager run records each kernel's
             operand shapes and one more counts one verify's launches, then
             the API's first call (KZG_REQUIRED must be launched, none of
-            OFF_PAIRING at the pairing's n = 2) and a warm
+            OFF_PAIRING at the pairing's n = 2, at most 20 K4 launches in an
+            eager verify) and a warm
             one (nothing launched from Python), and an eager run is split
             at its stages (host, staging, stage A, stage B with the sums,
             pairing). Then through the API: by_root with two proofs swapped
@@ -151,7 +159,8 @@ Phases, each printing one JSON line:
             53 prepare, 14 h2g2, 14 pairing).
 8. profile  torch.profiler over one call of each unit (fp_add, fp_sub,
             fp_neg and fp_mul_small on equal shapes, fp_add broadcast and
-            strided, G1/G2 add and double, the Miller doubling and addition
+            strided, fp_lincomb at the isogeny's sums and an Fp6 product's,
+            G1/G2 add and double, the Miller doubling and addition
             steps, a Miller loop's T chain, the Fp inverse and the Fp2
             sqrt-ratio power: one CUDA kernel each, or the phase fails),
             over each
@@ -233,8 +242,8 @@ summary: the quick way to time two trees' kernels in one call on one card.
 To time a kernel redesign against its parent, unpack the parent with
 ``git archive`` into a gitignored directory, copy this script beside it,
 and run both trees' ``--kernels-only`` in one call, in turns (parent,
-change, change, parent). A tree whose K1, K2 or K4 library has no empty
-entry point gets floor_ms null there.
+change, change, parent). A tree whose K1, K2, K3 or K4 library has no
+empty entry point gets floor_ms null there.
 """
 
 import collections
@@ -270,10 +279,23 @@ K2_SHAPES = ((2, 2, 12, 64), (4, 2, 12, 64), (4, 2, 12, 4096), (6, 2, 12, 4096))
 # lanes for by_root (n_bucket 8), 512 for by_range (256).
 K1_SHAPES = ((12, 1), (3, 2, 12, 65), (4, 12, 4096), (6, 12, 4096),
              (4, 12, 16), (4, 12, 512), (6, 12, 512))
-# K4's operand shapes among those with the most calls a verify (a CPU record
-# of the headline's code at n = 128: (2, 12, n), (12, n), (2, 12, m + 1)),
-# at the headline's n = 4096 and m = 64, and its largest, (6, 12, 4096).
+# K4's one-row entries' operand shapes (their most called before
+# fp_lincomb took every path's additive steps; no path runs them now): the
+# headline's n = 4096 and m = 64, m + 1 and its largest, (6, 12, 4096).
 K4_SHAPES = ((2, 12, 64), (2, 12, 65), (12, 4096), (2, 12, 4096), (6, 12, 4096))
+# fp_lincomb: every plan the paths register (fused.LINCOMB_PLANS) held at NS
+# with K4's edge pairs in the first columns, and timed at the paths' n: the
+# final exponentiation's 1, h2g2's m = 64, 4096 and the wide bucket's
+# 16384; LINCOMB_MAIN is its summary's row (the Fp6 product's sums, the
+# final exponentiation's most launched plan). LINCOMB_WORST: the kernel's worst accumulator rows, every
+# |c| and their sum at the bounds, both signs (held with every term p - 1).
+LINCOMB_NS = (1, 64, 4096, 16384)
+LINCOMB_MAIN = ("fp6_mul", 1)
+LINCOMB_WORST = (((1 << 16) - 1,) * 4 + (3,), (-((1 << 16) - 1),) * 4 + (-3,),
+                 ((1 << 16) - 1, -((1 << 16) - 1), (1 << 16) - 1, -((1 << 16) - 1), 3))
+# K3's operand shapes on the paths: the final exponentiation's n = 1, KZG's
+# two pairs and the headline's m + 1 = 65.
+K3_SHAPES = ((2, 3, 2, 12, 1), (2, 3, 2, 12, 2), (2, 3, 2, 12, 65))
 # K5's operand shapes on the paths, per entry: G1 in the headline's ladder
 # and key tree (n = 4096) and KZG's ladders (16 and 512 lanes); G2 in h2g2's
 # cofactor clearing (m = 64), the pairing's addition steps (m + 1 = 65), the
@@ -304,6 +326,7 @@ K6_SHAPES = {name: ((3, 2, 12, 2), (3, 2, 12, 65), (3, 2, 12, 4097), (3, 2, 12, 
 # library -> (empty entry point, shapes (or shapes per entry), phase tag).
 FLOORED = {"fp_mul": ("lh_fp_empty", K1_SHAPES, "k1"),
            "fp2_mul": ("lh_fp2_empty", K2_SHAPES, "k2"),
+           "fp12_op": ("lh_fp12_empty", K3_SHAPES, "k3"),
            "fp_add": ("lh_fp_add_empty", K4_SHAPES, "k4"),
            "curve_op": ("lh_curve_empty", {**K5_SHAPES, **K6_SHAPES}, "k5")}
 # Kernels timed against an empty kernel of their own grid, not their
@@ -331,19 +354,24 @@ KZG_ELEMENTS = 4096
 # the final exponentiation's Fp2 and Fp12 products (no K5 on G2: the chain
 # holds the G2 doubling and addition).
 K4 = ("fp_add", "fp_sub", "fp_neg", "fp_mul_small")
+# K4's launches on a path, by entry point, and their ceilings a verify
+# (h2g2's at m, the final exponentiation's at n = 1).
+K4_FAMILY = K4 + ("fp_lincomb",)
+K4_CEILING = {"headline": 32, "h2g2": 16, "final_exp": 16, "kzg": 20}
 # Kernels no path launches: fp_mul_small since K6 folded the Miller steps'
 # small multiples into its schedule, fp_sqr since K7 took the Fp inverse's
 # squares (its only path caller), fp_pow since the inverse became K7's
 # binary GCD (fp_inv), K6's one-step calls since the Miller loop runs its
-# steps as one chain. Held against their plain versions in the kernels
-# phase (every shape, n = 65 included), required on no path.
-OFF_PATH = ("fp_mul_small", "fp_sqr", "fp_pow") + K6_STEPS
-KZG_REQUIRED = ("fp_mul", "fp2_mul", "fp12_sqr", "fp12_mul", "fp12_line", "fp_add", "fp_sub",
-                "fp_neg", "g1_add", "g1_double", "miller_chain", "fp_inv")
+# steps as one chain, fp_add, fp_sub and fp_neg since every path's additive
+# steps are fp_lincomb launches. Held against their plain versions in the
+# kernels phase (every shape, n = 65 included), required on no path.
+OFF_PATH = ("fp_mul_small", "fp_sqr", "fp_pow", "fp_add", "fp_sub", "fp_neg") + K6_STEPS
+KZG_REQUIRED = ("fp_mul", "fp2_mul", "fp12_sqr", "fp12_mul", "fp12_line", "fp_lincomb",
+                "g1_add", "g1_double", "miller_chain", "fp_inv")
 
 # Kernels K6 took off the pairing's width (n = m + 1 pairs; KZG's 2): none
 # of them may launch at that n.
-OFF_PAIRING = ("fp_mul", "fp_sqr", "fp2_mul", "fp2_sqr") + K4 + ("g2_add", "g2_double")
+OFF_PAIRING = ("fp_mul", "fp_sqr", "fp2_mul", "fp2_sqr") + K4_FAMILY + ("g2_add", "g2_double")
 K4_EDGE_KS = (1, 3, 4, 8, 12, 65535)     # mul_small's k at the edge pairs
 K4_TIMED_K = 12     # the main path's largest k: three doublings and an add
 
@@ -536,9 +564,11 @@ def phase_env():
           "ptxas": {name: _build.ptxas_report(name).splitlines() for name in _build.SOURCES}})
 
 
-def _rand_fp(shape, gen, strides=None):
+def _rand_fp(shape, gen, strides=None, edges=False):
     """Canonical Montgomery limbs (..., 12, n) on the card: random limbs with
-    the top limb below p's, and p - 1 and 0 in the first two elements. With
+    the top limb below p's, and p - 1 and 0 in the first two elements; with
+    `edges`, K4's edge pairs in the first columns instead, pair c's first
+    value in the even terms of axis -3 and its second in the odd ones. With
     `strides`, a view of those element strides (a stride of 0 broadcasts)."""
     from lighthouse_tpu_torch.ops import limbs as lb
 
@@ -547,6 +577,11 @@ def _rand_fp(shape, gen, strides=None):
     edge = lb.ints_to_limbs([lb.P - 1, 0], DEVICE).to(torch.int64) & 0xFFFFFFFF
     k = min(2, shape[-1])
     x[..., :, :k] = edge[:, :k]
+    if edges and len(shape) >= 3:
+        pairs = _k4_edge_pairs()[:shape[-1]]
+        cols = [_raw_limbs(v).to(torch.int64) & 0xFFFFFFFF for v in zip(*pairs)]
+        for j in range(shape[-3]):
+            x[..., j, :, :len(pairs)] = cols[j % 2]
     x = torch.where(x > 0x7FFFFFFF, x - (1 << 32), x).to(torch.int32).contiguous()
     if strides is None:
         return x
@@ -672,6 +707,8 @@ def _call(name, xs, k=K4_TIMED_K, plain=False):
     from lighthouse_tpu_torch.ops import fused
 
     fn = (fused.PLAIN if plain else fused.WRAPPERS)[name]
+    if name == "fp_lincomb":                # k: the plan's coefficients
+        return fn(tuple(xs), k)
     return fn(*xs, k) if name in ("fp_mul_small",) + K7_POW else fn(*xs)
 
 
@@ -814,10 +851,82 @@ def _timed_pow(name, shape, gen):
 
 
 def _entries(lib):
-    """(kernel name, operand kinds) of each entry point of library `lib`."""
+    """(kernel name, operand kinds) of each entry point of library `lib`
+    but fp_lincomb, which _lincomb_kernels holds and times per plan."""
     from lighthouse_tpu_torch.ops import fused
 
-    return [(name, kinds) for name, (owner, _, kinds) in fused._KERNELS.items() if owner == lib]
+    return [(name, kinds) for name, (owner, _, kinds) in fused._KERNELS.items()
+            if owner == lib and name != "fp_lincomb"]
+
+
+def _lincomb_bound(xs, coeffs):
+    """fp_lincomb's bound on operands xs: each term that a row reads (a
+    nonzero coefficient) read once over its operand's other axes (a
+    broadcast axis once), each output Fp written once, 4 bytes a limb; the
+    multiply-adds a nonzero coefficient's 12 limbs and a quotient's 12 a
+    column -> (bound ms, by)."""
+    from lighthouse_tpu_torch.ops import fused
+
+    lead, n = fused._lincomb_shape(xs)
+    cols = math.prod(lead) * n
+    used = {j for row in coeffs for j, c in enumerate(row) if c}
+    read, first = 0, 0
+    for x in xs:
+        axis = x.dim() - 3
+        terms = len(used & set(range(first, first + x.shape[axis])))
+        first += x.shape[axis]
+        per_term = math.prod(sz for i, (sz, st) in enumerate(zip(x.shape, x.stride()))
+                             if st and i != axis)
+        read += 4 * per_term * (min(terms, 1) if x.stride(axis) == 0 else terms)
+    nbytes = read + 4 * cols * len(coeffs) * 12
+    mads = cols * 12 * (sum(1 for row in coeffs for c in row if c) + len(coeffs))
+    t_ops, t_bytes = mads / INT32_MAD_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def _timed_lincomb(coeffs, xs):
+    """fp_lincomb on operands xs: bit for bit with its plain version, then
+    timed beside an empty kernel on its grid, with its bound."""
+    from lighthouse_tpu_torch.ops import fused
+
+    err = _check_equal("fp_lincomb", f"{[tuple(x.shape) for x in xs]}", xs, coeffs)
+    lead, n = fused._lincomb_shape(xs)
+    reps = 200 if n < 16384 else 50
+    call_ms = cuda_ms(lambda: _call("fp_lincomb", xs, coeffs), reps)
+    ms = graph_ms(lambda: _call("fp_lincomb", xs, coeffs), reps)
+    plain_ms = cuda_ms(lambda: _call("fp_lincomb", xs, coeffs, plain=True), 3)
+    floor_ms, floor_call_ms = _floor("fp_add", lead + (len(coeffs), 12, n), "fp", "fp_lincomb")
+    bound_ms, bound_by = _lincomb_bound(xs, coeffs)
+    return {"mismatches": 0, "max_abs_err": err, "ms": ms, "call_ms": call_ms,
+            "plain_ms": plain_ms, "floor_ms": floor_ms, "floor_call_ms": floor_call_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def _lincomb_kernels(gen):
+    """fp_lincomb at every plan the paths register: bit for bit with its plain
+    version at each n of NS, one operand (J, 12, n) with K4's edge pairs in
+    its first columns; timed at LINCOMB_NS. Then LINCOMB_WORST with every
+    term p - 1, 0 and edge pairs. -> ({plan: {n: row}}, the worst rows'
+    max |limb difference|)."""
+    from lighthouse_tpu_torch.crypto.bls.constants import P
+    from lighthouse_tpu_torch.ops import curves, fused, h2c, tower  # noqa: F401 (their plans)
+
+    per_plan = {}
+    for name, coeffs in sorted(fused.LINCOMB_PLANS.items()):
+        per_plan[name] = {}
+        j = len(coeffs[0])
+        for n in NS:
+            x = _rand_fp((j, 12, n), gen, edges=True)
+            if n in LINCOMB_NS:
+                per_plan[name][n] = _timed_lincomb(coeffs, [x])
+            else:
+                _check_equal("fp_lincomb", f"{name} n={n}", [x], coeffs)
+    worst = 0
+    for vals in ((P - 1,) * 5, (0,) * 5, None):
+        x = (_rand_fp((5, 12, 130), gen, edges=True) if vals is None
+             else torch.stack([_raw_limbs([v] * 3) for v in vals]))
+        worst = max(worst, _check_equal("fp_lincomb", f"worst rows {vals}", [x], LINCOMB_WORST))
+    return per_plan, worst
 
 
 def _time_shapes(name, shapes, gen):
@@ -846,7 +955,7 @@ def phase_kernels():
         emit({"phase": "kernels", "kernel": name, "tolerance": 0, "by_shape": per,
               "library_ms": None})
     for name, (lib, _, kinds) in fused._KERNELS.items():
-        if name in K7:
+        if name in K7 or name == "fp_lincomb":
             continue
         per_n = {n: _timed(name, [fused._TAIL[k] + (n,) for k in kinds], gen) for n in NS}
         if lib in FLOORED:
@@ -860,6 +969,12 @@ def phase_kernels():
     emit({"phase": "kernels", "k4_edges": {"pairs": len(_k4_edge_pairs()), "ks": K4_EDGE_KS,
                                           "tolerance": 0, "mismatches": 0,
                                           "max_abs_err": k4_err}})
+    per_plan, worst_err = _lincomb_kernels(gen)
+    results["fp_lincomb"] = per_plan
+    emit({"phase": "kernels", "kernel": "fp_lincomb", "tolerance": 0, "ns": NS,
+          "by_plan": per_plan, "plans": {k: len(v) for k, v in fused.LINCOMB_PLANS.items()},
+          "worst_rows": {"coeffs": LINCOMB_WORST, "mismatches": 0, "max_abs_err": worst_err},
+          "library_ms": None})
     by_shape = {}
     for lib in FLOORED:
         for name, _ in _entries(lib):
@@ -885,9 +1000,10 @@ def _host_us(fn, reps: int = 5000) -> float:
 
 def phase_wrapper():
     """The host's cost of each part of one K2 wrapper call, at (2, 12, 64),
-    and of the whole call; then of one K4 fp_add call at (2, 12, 64), and
-    of whole K4 calls on strided and broadcast operands."""
-    from lighthouse_tpu_torch.ops import _build, fused
+    and of the whole call; then of one K4 fp_add call at (2, 12, 64), of
+    whole K4 calls on strided and broadcast operands, and of fp_lincomb's
+    launch arguments and whole call at the isogeny's sums (2, 32, 12, 64)."""
+    from lighthouse_tpu_torch.ops import _build, fused, h2c  # noqa: F401 (h2c's plans)
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED + 2)
@@ -922,6 +1038,7 @@ def phase_wrapper():
     fp2 = _rand_fp((3, 2, 12, 64), gen)
     x0, x1 = fp2[..., 0, :, :], fp2[..., 1, :, :]
     one = _rand_fp((12, 1), gen)
+    iso, iso_plan = _rand_fp((2, 32, 12, 64), gen), fused.LINCOMB_PLANS["iso_map_sums"]
 
     k4_parts = {
         "check": lambda: fused._check_additive("fp_add", (a, b), 0),
@@ -935,6 +1052,9 @@ def phase_wrapper():
         "whole_call_strided": lambda: fused.fp_add(x0, x1),
         "whole_call_broadcast": lambda: fused.fp_add(a, one),
         "whole_call_mul_small": lambda: fused.fp_mul_small(a, K4_TIMED_K),
+        "lincomb_check": lambda: fused._check_lincomb((iso,), iso_plan),
+        "lincomb_launch_args": lambda: fused._lincomb_args((iso,), iso_plan),
+        "whole_call_lincomb": lambda: fused.fp_lincomb(iso, iso_plan),
     }
     emit({"phase": "wrapper", "kernel": "fp_add", "shape": [2, 12, 64],
           "host_us": {k: _host_us(f) for k, f in k4_parts.items()}})
@@ -970,7 +1090,9 @@ def _new_shapes(shapes, seen):
 def phase_main_path_shapes(shapes, phase="main_path_shapes", required=None):
     """Every kernel against its plain version at each operand shape a path
     gave it (stacked leading rows included; K4, K5 and K6 at each operand
-    layout, its strides, broadcasts and k; K7 at each exponent), tolerance 0. Each kernel in
+    layout, its strides, broadcasts and k, fp_lincomb also at each plan with
+    K4's edge pairs in its terms' first columns; K7 at each exponent),
+    tolerance 0. Each kernel in
     `required` (default: all but OFF_PATH) must have a recorded shape; the
     others are held at theirs, if any."""
     from lighthouse_tpu_torch.ops import fused
@@ -990,14 +1112,15 @@ def phase_main_path_shapes(shapes, phase="main_path_shapes", required=None):
                              for shape, e in sorted(shapes[name]))
             recorded = sorted({shape for shape, _ in shapes[name]})
             extra = {"exponents": len({e for _, e in shapes[name]})}
-        elif name in K4 + K5 + K6:
+        elif name in K4_FAMILY + K5 + K6:
             err = 0
             for layout, k in sorted(shapes[name]):
-                xs = [_rand_fp(sh, gen, st) for sh, st in layout]
+                xs = [_rand_fp(sh, gen, st, edges=name == "fp_lincomb") for sh, st in layout]
                 err = max(err, _check_equal(name, f"{layout} k={k}", xs, k))
             errs[name] = err
             recorded = sorted({tuple(sh for sh, _ in layout) for layout, _ in shapes[name]})
             extra = {"layouts": len(shapes[name]),
+                     "plans": len({k for _, k in shapes[name]}) if name == "fp_lincomb" else None,
                      "strided_or_broadcast": sum(
                          1 for layout, _ in shapes[name]
                          if any(st != torch.empty(sh, device="meta").stride() for sh, st in layout))}
@@ -1129,15 +1252,16 @@ def _watched(fn):
     {kernel: set of operand shapes}, {kernel: {operand n: calls}},
     {kernel: {first operand's shape: calls}}). K4's, K5's and K6's records
     are of operand layouts, ((shape, strides) per operand, k) (k = 0 but for
-    mul_small), K7's of (shape, exponent), and K4's by_n also counts
-    mul_small's calls per k under ("k", k)."""
+    mul_small; fp_lincomb's k is its plan's coefficients), K7's of (shape,
+    exponent), and K4's by_n also counts mul_small's calls per k under
+    ("k", k)."""
     from lighthouse_tpu_torch.ops import fused
 
     shapes = {name: set() for name in fused.launches}
     by_n = {name: {} for name in fused.launches}
     by_shape = {name: {} for name in fused.launches}
     run, run_additive, run_curve = fused._run, fused._run_additive, fused._run_curve
-    run_miller, run_pow = fused._run_miller, fused._run_pow
+    run_miller, run_pow, run_lincomb = fused._run_miller, fused._run_pow, fused._run_lincomb
 
     def count(name, xs):
         n = xs[0].shape[-1]
@@ -1172,14 +1296,38 @@ def _watched(fn):
         count(name, (a,))
         return run_pow(name, a, exponent)
 
+    def watch_lincomb(xs, coeffs):
+        shapes["fp_lincomb"].add((tuple((tuple(x.shape), tuple(x.stride())) for x in xs),
+                                  coeffs))
+        count("fp_lincomb", xs)
+        return run_lincomb(xs, coeffs)
+
     fused._run, fused._run_additive, fused._run_curve = watch, watch_additive, watch_curve
-    fused._run_miller, fused._run_pow = watch_miller, watch_pow
+    fused._run_miller, fused._run_pow, fused._run_lincomb = watch_miller, watch_pow, watch_lincomb
     try:
         out = fn()
     finally:
         fused._run, fused._run_additive, fused._run_curve = run, run_additive, run_curve
-        fused._run_miller, fused._run_pow = run_miller, run_pow
+        fused._run_miller, fused._run_pow, fused._run_lincomb = run_miller, run_pow, run_lincomb
     return out, shapes, by_n, by_shape
+
+
+def _k4_family(per_verify, by_n, ceiling, m=None):
+    """K4's launches in one eager verify by entry point (fp_add, fp_sub,
+    fp_neg, fp_mul_small and fp_lincomb), checked against `ceiling`; with m,
+    h2g2's (at n = m) and the final exponentiation's (at n = 1) against
+    theirs. -> the counts."""
+    launched = {k: per_verify[k] for k in K4_FAMILY}
+    out = {"by_entry": launched, "total": sum(launched.values()), "ceiling": ceiling}
+    if out["total"] > ceiling:
+        raise AssertionError(f"{out['total']} K4 launches a verify, past {ceiling}: {launched}")
+    if m is not None:
+        for part, n in (("h2g2", m), ("final_exp", 1)):
+            out[part] = sum(by_n[k].get(n, 0) for k in K4_FAMILY)
+            if out[part] > K4_CEILING[part]:
+                raise AssertionError(f"{out[part]} K4 launches in {part} (n = {n}), past "
+                                     f"{K4_CEILING[part]}")
+    return out
 
 
 def _by_n_json(by_n):
@@ -1217,6 +1365,7 @@ def phase_verify():
     missing = [k for k in _main_required() if per_verify[k] <= 0]
     if missing:
         raise AssertionError(f"the eager headline verify launched no {missing}")
+    k4 = _k4_family(per_verify, by_n, K4_CEILING["headline"], HEADLINE["distinct"])
     _off_pairing(by_n, HEADLINE["distinct"] + 1, "the headline")
     # The main path, the API: its first call captures the bucket's graphs.
     launches, first_s, wall_s = _main_path_runs(api.verify_signature_sets, (sets,),
@@ -1253,6 +1402,7 @@ def phase_verify():
                                           "sigs_per_s": n / wall_s,
                                           "launches": launches,
                                           "launches_per_eager_verify": per_verify,
+                                          "k4_family": k4,
                                           "stages_s": stages_s,
                                           "launches_by_n": _by_n_json(by_n),
                                           "launches_by_shape": {
@@ -1444,6 +1594,7 @@ def phase_kzg():
         missing = [k for k in KZG_REQUIRED if per_verify[name][k] <= 0]
         if missing:
             raise AssertionError(f"the eager KZG verify ({name}) launched no {missing}")
+        k4 = _k4_family(per_verify[name], by_n, K4_CEILING["kzg"])
         _off_pairing(by_n, 2, f"KZG {name}")
         launches[name], first_s, wall_s = _main_path_runs(
             kzg.verify_blob_kzg_proof_batch, batch, f"KZG {name}", KZG_REQUIRED)
@@ -1453,6 +1604,7 @@ def phase_kzg():
                       "stages_s": _stage_seconds(_kzg_stages(kzg, *batch), f"KZG batch {name}"),
                       "launches": launches[name],
                       "launches_per_eager_verify": per_verify[name],
+                      "k4_family": k4,
                       "launches_by_n": _by_n_json(by_n),
                       "launches_by_shape": {
                           k: {str(sh): c for sh, c in sorted(v.items(), key=lambda kv: -kv[1])}
@@ -2008,9 +2160,9 @@ def phase_multi(sets, poisoned, distinct):
 # functions' do not): matched against the wrapper's launch counts. Group 2
 # is the kernel's stem, _kernel_stem's value for the wrappers that launch it.
 PORT_KERNEL = re.compile(
-    r"^(void )?\(anonymous namespace\)::(fp_add|fp_mul|fp2|fp12|fp_inv|fp_pow|fp2_pow|curve|chain)"
+    r"^(void )?\(anonymous namespace\)::(lincomb|fp_mul|fp2|fp12|fp_inv|fp_pow|fp2_pow|curve|chain)"
     r"_kernel")
-_LIB_STEM = {"fp_mul": "fp_mul", "fp2_mul": "fp2", "fp12_op": "fp12", "fp_add": "fp_add",
+_LIB_STEM = {"fp_mul": "fp_mul", "fp2_mul": "fp2", "fp12_op": "fp12", "fp_add": "lincomb",
              "curve_op": "curve"}
 
 
@@ -2093,7 +2245,7 @@ def _units(gen):
     inverse at one element, the sqrt-ratio power at h2g2's 2 x m): name ->
     thunk."""
     from lighthouse_tpu_torch.ops import curves as cv
-    from lighthouse_tpu_torch.ops import fused, pairing
+    from lighthouse_tpu_torch.ops import fused, h2c, pairing  # noqa: F401 (h2c's plans)
     from lighthouse_tpu_torch.ops import limbs as lb
     from lighthouse_tpu_torch.ops import tower as tw
 
@@ -2106,6 +2258,9 @@ def _units(gen):
     t, q = (_rand_fp((3, 2, 12, m + 1), gen) for _ in range(2))
     px, py, pz = _rand_fp((3, 12, m + 1), gen).unbind(0)     # p_proj.select(-3, i)
     s = _rand_fp((2, 2, 12, m), gen)                          # h2g2's two rows
+    iso = _rand_fp((2, 32, 12, m), gen)                       # the isogeny's 16 products
+    fp6 = _rand_fp((18, 12, 1), gen)                          # an Fp6 product's 9
+    plans = fused.LINCOMB_PLANS
     return {
         "fp_add": lambda: fused.fp_add(a, b),
         "fp_sub": lambda: fused.fp_sub(a, b),
@@ -2113,6 +2268,8 @@ def _units(gen):
         "fp_mul_small": lambda: fused.fp_mul_small(a, K4_TIMED_K),
         "fp_add_broadcast": lambda: fused.fp_add(a, one),
         "fp_add_strided": lambda: fused.fp_add(fp2[..., 0, :, :], fp2[..., 1, :, :]),
+        "fp_lincomb": lambda: fused.fp_lincomb(iso, plans["iso_map_sums"]),
+        "fp_lincomb_fp6": lambda: fused.fp_lincomb(fp6, plans["fp6_mul"]),
         "g1_add": lambda: cv.G1.add(g1a, g1b),
         "g1_double": lambda: cv.G1.double(g1a),
         "g2_add": lambda: cv.G2.add(g2a, g2b),
@@ -2140,7 +2297,8 @@ def phase_profile(headline, kzg_by_root):
         _, tr, launched = _profiled(fn)
         per_unit[name] = {"kernels": tr["kernels"], "wrapper_launches": sum(launched.values()),
                           "busy_ms": tr["busy_ms"]}
-    for name in (("fp_add", "fp_sub", "fp_add_broadcast", "fp_add_strided") + K5
+    for name in (("fp_add", "fp_sub", "fp_add_broadcast", "fp_add_strided", "fp_lincomb",
+                  "fp_lincomb_fp6") + K5
                  + ("miller_dbl_step", "miller_add_step", "miller_chain", "fp_inv",
                     "fp2_sqrt_ratio_pow")):
         if per_unit[name]["kernels"] != 1:
@@ -2861,6 +3019,12 @@ def _summary(kernels, by_shape, launches, shape_errs, launches_kzg, per_verify=N
             extra = {"shape": list(K7_MAIN[name]),
                      "ms_by_shape": {sh: v["ms"] for sh, v in per_n.items()},
                      "floor_ms_by_shape": {sh: v["floor_ms"] for sh, v in per_n.items()}}
+        elif name == "fp_lincomb":  # per plan, at LINCOMB_NS
+            plan, n = LINCOMB_MAIN
+            top = per_n[plan][n]
+            per_n = {f"{p} n={m}": v for p, rows in per_n.items() for m, v in rows.items()}
+            extra = {"plan": plan, "n": n, "ms_by_plan": {k: v["ms"] for k, v in per_n.items()},
+                     "floor_ms_by_plan": {k: v["floor_ms"] for k, v in per_n.items()}}
         else:
             top = per_n[max(NS)]
             extra = {"n": max(NS), "ms_by_n": {n: v["ms"] for n, v in per_n.items()}}

@@ -39,22 +39,24 @@ def _sig(n_ptr: int, n_int: int = 2) -> list:
 
 
 # C entry points per library: name -> argument types. Most take (output,
-# inputs..., rows, n, stream); K4's and K5's take (output, inputs..., rows,
-# n, [k,] geometry, stream), the geometry a pointer to int64 strides or null
-# (csrc/fp_add.cu, csrc/curve_op.cu); K6's takes its two outputs (the
+# inputs..., rows, n, stream); K4's takes (output, an array of operand
+# pointers, their count, rows, n, the plan, the geometry, stream), the plan
+# a uint32 array and the geometry an int64 one (csrc/fp_add.cu); K5's
+# (output, inputs..., rows, n, geometry, stream), the geometry a pointer to
+# int64 strides or null (csrc/curve_op.cu); K6's takes its two outputs (the
 # last T, the lines), its five operands, rows, n, the steps (a byte each)
 # and their count, the geometry and the stream; K7's powers take (output,
 # input, digits, digit count, rows, n, stream). lh_fp_empty,
-# lh_fp2_empty, lh_fp_add_empty, lh_curve_empty, lh_miller_empty,
-# lh_fp_inv_empty, lh_fp_pow_empty and lh_fp2_pow_empty launch an empty
-# kernel on K1's, K2's, K4's, K5's, K6's and K7's three grids:
-# chip_smoke.py's floor.
+# lh_fp2_empty, lh_fp12_empty, lh_fp_add_empty, lh_curve_empty,
+# lh_miller_empty, lh_fp_inv_empty, lh_fp_pow_empty and lh_fp2_pow_empty
+# launch an empty kernel on K1's, K2's, K3's, K4's, K5's, K6's and K7's three
+# grids: chip_smoke.py's floor.
 ENTRY_POINTS = {
     "fp_mul": {"lh_fp_mul": _sig(3), "lh_fp_sqr": _sig(2), "lh_fp_empty": _sig(1)},
     "fp2_mul": {"lh_fp2_mul": _sig(3), "lh_fp2_sqr": _sig(2), "lh_fp2_empty": _sig(1)},
-    "fp12_op": {"lh_fp12_sqr": _sig(2), "lh_fp12_mul": _sig(3), "lh_fp12_line": _sig(3)},
-    "fp_add": {"lh_fp_add": _sig(3) + [_PTR], "lh_fp_sub": _sig(3) + [_PTR],
-               "lh_fp_neg": _sig(2) + [_PTR], "lh_fp_mul_small": _sig(2, 3) + [_PTR],
+    "fp12_op": {"lh_fp12_sqr": _sig(2), "lh_fp12_mul": _sig(3), "lh_fp12_line": _sig(3),
+                "lh_fp12_empty": _sig(1)},
+    "fp_add": {"lh_fp_lincomb": [_PTR, _PTR, _INT, _INT, _INT, _PTR, _PTR, _PTR],
                "lh_fp_add_empty": _sig(1)},
     "curve_op": {"lh_g1_add": _sig(3) + [_PTR], "lh_g1_dbl": _sig(2) + [_PTR],
                  "lh_g2_add": _sig(3) + [_PTR], "lh_g2_dbl": _sig(2) + [_PTR],

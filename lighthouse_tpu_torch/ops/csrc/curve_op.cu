@@ -285,14 +285,12 @@ struct Shape {
 // column of slot 0 (limb stride P, slot stride SF). The words (LH_K5_LIN) are
 // read into registers first. Where `chains` allows it and every |c_k| = 1
 // (single slots, sums and differences of slots): the first term loaded
-// (negated if need be), the others by K4's chains (lh::add_mod, sub_mod).
+// (negated if need be), the others by fp.cuh's chains (lh::add_mod, sub_mod).
 // Otherwise (small multiples, 3 to 72, or any operand where the caller
-// wants one form) in one pass: the terms' signed column sums plus m p (m the
-// subtracted |c_k|), one carry pass into v in [0, (sum |c_k|) p), 13 limbs;
-// then v - q p with q = v_hi * LH_K5_INV_HI in double precision, truncated
-// (v_hi = floor(v / 2^352) < 2^47, exact in a double; the constant is
-// 2^352 / p rounded down past the product's rounding), which is floor(v / p)
-// or one less; then one conditional subtraction.
+// wants one form) in one pass: the terms' signed column sums, then
+// lh::sum_mod (fp.cuh, K4's arithmetic too): plus m p (m the subtracted
+// |c_k|), one carry pass into v in [0, (sum |c_k|) p), a quotient estimate
+// floor(v / p) or one less, one conditional subtraction.
 template <int P, int SF>
 __device__ __forceinline__ void load_slot(const uint32_t* slots, uint32_t w, uint32_t* x) {
   const uint32_t* src = slots + (w & 0xffu) * SF;
@@ -353,24 +351,7 @@ __device__ __forceinline__ void combine(const uint32_t* words, const uint32_t* s
       }
     }
   }
-  uint32_t v[lh::NL];
-  long long carry = 0;   // arithmetic shift: v >= 0, so it ends non-negative
-#pragma unroll
-  for (int l = 0; l < lh::NL; ++l) {
-    carry += col[l] + bias + m * lh::p_limb(l);
-    v[l] = (uint32_t)carry;
-    carry >>= 32;
-  }
-  const uint64_t hi = ((uint64_t)carry << 32) | v[lh::NL - 1];
-  const long long q = (long long)((double)hi * LH_K5_INV_HI);
-  long long br = 0;
-#pragma unroll
-  for (int l = 0; l < lh::NL; ++l) {
-    br += (long long)v[l] - q * lh::p_limb(l);
-    v[l] = (uint32_t)br;
-    br >>= 32;
-  }
-  lh::canonical(v, acc);   // v - q p is in [0, 2p)
+  lh::sum_mod(col, bias, m, acc);
 }
 
 // One product of the schedule, W = A B, 24 exact limbs into its column

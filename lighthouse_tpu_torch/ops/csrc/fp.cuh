@@ -114,8 +114,8 @@ __device__ __forceinline__ void redc(uint32_t* t, uint32_t* out) {
   for (int s = 0; s < NSUB; ++s) cond_sub_p(out);
 }
 
-// --- p as immediates: K1's reduction and K4's modular chains, shared with K5
-// (csrc/curve_op.cu)
+// --- p as immediates: K1's reduction and the modular chains K5's operands
+// take (csrc/curve_op.cu)
 
 // Limb j of p as an immediate: a __constant__ array goes through the
 // constant cache, which misses on a launch's first use.
@@ -345,6 +345,41 @@ __device__ __forceinline__ void canonical(const uint32_t* u, uint32_t* out) {
   }
 #pragma unroll
   for (int j = 0; j < NL; ++j) out[j] = br < 0 ? u[j] : d[j];
+}
+
+// --- Small signed sums of Fp values: K4's linear combinations (csrc/fp_add.cu)
+// and K5's operands (csrc/curve_op.cu combine).
+
+// 2^352 / p (1 - 2^-51), rounded down to a double (ops/fused.py K5_INV_HI).
+constexpr double kInvHi = 0x1.3b06ba5e7993ap-29;
+
+// out = v mod p, canonical, for v = sum_l (col[l] + bias) 2^(32 l) + m p with
+// 0 <= v < 2^18 p: one carry pass into 13 limbs (the carry an arithmetic
+// shift: the columns may be negative, v is not); then v - q p with q =
+// trunc(v_hi kInvHi) in double precision, v_hi = floor(v / 2^352) < 2^47
+// exact in a double, which is floor(v / p) or one less, so v - q p is in
+// [0, 2p); then one conditional subtraction. The columns' partial sums stay
+// below 2^52 in magnitude for any such v whose terms are below 2^32 a limb.
+__device__ __forceinline__ void sum_mod(const long long* col, long long bias, long long m,
+                                        uint32_t* out) {
+  uint32_t v[NL];
+  long long carry = 0;
+#pragma unroll
+  for (int l = 0; l < NL; ++l) {
+    carry += col[l] + bias + m * p_limb(l);
+    v[l] = (uint32_t)carry;
+    carry >>= 32;
+  }
+  const uint64_t hi = ((uint64_t)carry << 32) | v[NL - 1];
+  const long long q = (long long)((double)hi * kInvHi);
+  long long br = 0;
+#pragma unroll
+  for (int l = 0; l < NL; ++l) {
+    br += (long long)v[l] - q * p_limb(l);
+    v[l] = (uint32_t)br;
+    br >>= 32;
+  }
+  canonical(v, out);   // v - q p is in [0, 2p)
 }
 
 // out = t 2^-384 mod p, canonical, for 0 <= t < p 2^384 (t is clobbered),

@@ -255,6 +255,15 @@ int launch(void* out, const void* a, const void* b, long long rows, long long n,
                                 : launch_e<KIND, 1>(out, a, b, rows, n, stream);
 }
 
+__global__ void empty_kernel() {}
+
+template <int E>
+int launch_empty(long long rows, long long n, void* stream) {
+  empty_kernel<<<(unsigned)(rows * ((n + E - 1) / E)), 32 * Block<SQR, E>::warps, 0,
+                 (cudaStream_t)stream>>>();
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int lh_fp12_sqr(void* out, const void* a, long long rows, long long n, void* stream) {
@@ -269,4 +278,14 @@ extern "C" int lh_fp12_mul(void* out, const void* a, const void* b, long long ro
 extern "C" int lh_fp12_line(void* out, const void* a, const void* line, long long rows,
                             long long n, void* stream) {
   return launch<LINE>(out, a, line, rows, n, stream);
+}
+
+// An empty kernel on lh_fp12_sqr's grid for (rows, n) (the square: most of
+// K3's launches; the product's E = 1 blocks have twice its warps): the
+// launch floor K3 is timed against (chip_smoke.py floor_ms). Not a kernel
+// of the port.
+extern "C" int lh_fp12_empty(void* out, long long rows, long long n, void* stream) {
+  (void)out;
+  return rows * n >= kWideBatch ? launch_empty<8>(rows, n, stream)
+                                : launch_empty<1>(rows, n, stream);
 }

@@ -1,95 +1,130 @@
 // K4: the Fp additive layer over (..., 12, n) Montgomery limbs, canonical in
-// [0, p) in and out: a + b, a - b, -a and k a (1 <= k < 2^16) mod p.
+// [0, p) in and out. One launch evaluates a plan of signed linear
+// combinations,
+//     out[r] = sum_j C[r][j] x[j] mod p,   r < R,
+// the terms x[j] being the Fp values on axis -3 of up to kMaxOps operand
+// tensors (..., J_o, 12, n) in order, and the output a fresh contiguous
+// (..., R, 12, n): a whole step's additions, subtractions, negations and
+// small multiples (an Fp6 product's six sums of eighteen products with xi
+// folded in, a conjugation, a point's negation) in one launch. fused.fp_add,
+// fp_sub, fp_neg and fp_mul_small are one-row plans of it.
 //
 // No Pallas kernel computes these: the JAX package adds loose digits
 // (lighthouse_tpu/ops/bm/limbs.py:343-353 add / sub / neg) and XLA fuses
-// the additions into each stage's program. The port keeps its limbs
-// canonical, so each of these is a 384-bit carry chain; as torch ops it
-// was about 47 kernels a call (a carry lookahead on packed bit vectors),
-// here it is one.
+// the additions into each stage's program.
 //
-// Design: one thread per element, a block of kBlock elements along the
-// flat (row, column) index, so a warp's loads of one limb coalesce along
-// the minor axis. Work per element, in 32-bit limbs with 64-bit carries:
-//   add        s = a + b (below 2p < 2^382: no carry out of limb 11), then
-//              s - p by a signed borrow chain beside s, and s kept iff
-//              that chain borrowed;
-//   sub        d = a - b by a signed borrow chain, then d + (p & borrow
-//              mask) with the carry out of limb 11 dropped: a - b + p when
-//              a < b;
-//   neg        (p & nonzero mask) - a;
-//   mul_small  left-to-right double-and-add over k's bits, each step an
-//              add above, so every intermediate value stays in [0, p).
-// p's limbs are immediates, as in K1; the chains are lh::add_mod, sub_mod
-// and neg_mod (fp.cuh), which K5 (csrc/curve_op.cu) shares.
+// Arithmetic, one output Fp per thread (lh::sum_mod, fp.cuh, which K5's
+// operands share): the terms' signed 64-bit column sums c x[l], then plus
+// m p (m the row's subtracted |c|), one carry pass into v in [0, S p), S =
+// sum_j |C[r][j]|; a quotient estimate q = trunc(v_hi kInvHi) in double
+// precision, floor(v / p) or one less for v_hi = floor(v / 2^352) < 2^47;
+// v - q p in [0, 2p) and one conditional subtraction.
 //
-// Operands may be strided views and may broadcast: each input carries its
-// element strides (Geom) over the output's rows, which the wrapper
-// (ops/fused.py _geometry) folds into two levels r1 * r0; a broadcast axis
-// has stride 0. Dense operands (most calls) pass no geometry at all: each
-// argument a ctypes call converts costs the host about half a microsecond.
-// The output is a fresh contiguous (rows, 12, n) tensor.
+// Bounds (the launcher refuses a plan past them, as the wrapper does):
+//   R <= kMaxRows, J_o <= kMaxTerms, at most kMaxWords nonzero coefficients,
+//   0 < |C[r][j]| <= kMaxCoeff = 2^16 - 1 (fp_mul_small's k),
+//   S <= kMaxSum = 2^18 - 1.
+// With terms below p < 2^381, v < 2^18 p < 2^399, so v_hi < 2^47: the
+// estimate is exact enough (tests/test_torch_curve_op.py
+// test_quotient_constant). A column's partial sum is below 2 S 2^32 < 2^51 in
+// magnitude and the carry below 2^20: no int64 overflow.
 //
-// Bound on an H100: add and sub move 96 + 48 bytes an element, neg and
-// mul_small 48 + 48, and need no multiplies: bound by bytes, far below the
-// launch floor (an empty kernel on this grid, lh_fp_add_empty) at every
-// main-path shape. tests/test_torch_fp_add.py replays this file's limb
-// algorithm in Python integers.
+// Design: one thread per (lead row, output Fp, column), the output's own
+// order, so a warp's loads and stores of one limb coalesce along n. A row's
+// terms are read kBatch at a time, all their limbs' loads issued before any
+// is summed: one memory round trip a batch, where a load, sum, load loop
+// waited a round trip a term (a step's rows have 1 to 5 terms; batches of
+// 1, 4, 6 and 8 timed by scripts/probe_k4.py, PERF.md). The
+// plan is a by-value kernel parameter (__grid_constant__): a CUDA graph
+// records it at capture, with no device buffer and no host sync; it
+// changes per call site, so it cannot live in __constant__ memory. A row's
+// words are (term | operand << 6 | signed coefficient << 8); zero
+// coefficients are not stored. Operands may be strided views and may
+// broadcast: each carries its element strides over the output's lead rows,
+// folded into two levels r1 * r0 (ops/fused.py _geometry), and its term,
+// limb and column strides; a broadcast axis has stride 0.
+//
+// Bound on an H100: bytes, each input Fp read once and each output written
+// once, (J + R) 48 bytes a column; the multiplies are by small integers. At
+// the main path's shapes (n = 1 to 4096) that is far below the launch floor
+// (an empty kernel on this grid, lh_fp_add_empty). Tensor cores and TMA
+// have nothing to do here. tests/test_torch_fp_lincomb.py replays this
+// file's arithmetic in Python integers and the launch arguments' addressing.
 #include "fp.cuh"
 
 namespace {
 
-constexpr int kBlock = 128;   // elements per block
+constexpr int kBlock = 128;              // output Fp columns per block
+constexpr int kBatch = 4;                // terms whose loads are issued together
+constexpr int kMaxOps = 4;               // operand tensors
+constexpr int kMaxTerms = 64;            // terms per operand (6 bits of a word)
+constexpr int kMaxRows = 32;             // outputs R
+constexpr int kMaxWords = 128;           // nonzero coefficients of a plan
+constexpr long long kMaxCoeff = (1 << 16) - 1;
+constexpr long long kMaxSum = (1 << 18) - 1;
 
-enum Op { kAdd, kSub, kNeg, kMulSmall };
+// One operand: its data and its element strides over the output's (r1, r0)
+// and its own term, limb and column axes.
+struct Operand {
+  const uint32_t* ptr;
+  long long s1, s0, sj, sl, sn;
+};
 
-// out = k a mod p for 1 <= k < 2^16, left to right over k's bits; out must
-// not alias a.
-__device__ __forceinline__ void mul_small_mod(const uint32_t* a, uint32_t k, uint32_t* out) {
-#pragma unroll
-  for (int j = 0; j < lh::NL; ++j) out[j] = a[j];
-  for (int bit = 30 - __clz(k); bit >= 0; --bit) {
-    lh::add_mod(out, out, out);
-    if ((k >> bit) & 1u) lh::add_mod(out, a, out);
-  }
-}
+struct Operands {
+  Operand op[kMaxOps];
+};
 
-// Element strides of one input over the output's (r1, r0, limb, column).
-struct Geom {
-  long long s1, s0, sl, sn;
+// Row r's words are word[start[r] .. start[r + 1]).
+struct Plan {
+  uint32_t rows;
+  uint8_t start[kMaxRows + 1];
+  uint32_t word[kMaxWords];
 };
 
 struct Grid {
   uint32_t total, n, r0;
 };
 
-__device__ __forceinline__ const uint32_t* at(const uint32_t* base, const Geom& g, uint32_t r1,
-                                              uint32_t r0, uint32_t j) {
-  return base + r1 * g.s1 + r0 * g.s0 + j * g.sn;
-}
-
-template <int OP>
 __global__ void __launch_bounds__(kBlock)
-fp_add_kernel(uint32_t* __restrict__ out, const uint32_t* __restrict__ a,
-              const uint32_t* __restrict__ b, Geom ga, Geom gb, Grid g, uint32_t k) {
+lincomb_kernel(uint32_t* __restrict__ out, const __grid_constant__ Operands ops,
+               const __grid_constant__ Plan plan, const Grid g) {
   const uint32_t e = blockIdx.x * kBlock + threadIdx.x;
   if (e >= g.total) return;
-  const uint32_t row = e / g.n, j = e - row * g.n;
+  const uint32_t t = e / g.n, j = e - t * g.n;          // t: (lead row, output)
+  const uint32_t row = t / plan.rows, r = t - row * plan.rows;
   const uint32_t r1 = row / g.r0, r0 = row - r1 * g.r0;
-  uint32_t x[lh::NL], y[lh::NL], z[lh::NL];
-  const uint32_t* pa = at(a, ga, r1, r0, j);
+  long long col[lh::NL];
 #pragma unroll
-  for (int l = 0; l < lh::NL; ++l) x[l] = pa[l * ga.sl];
-  if (OP == kAdd || OP == kSub) {
-    const uint32_t* pb = at(b, gb, r1, r0, j);
+  for (int l = 0; l < lh::NL; ++l) col[l] = 0;
+  long long m = 0;
+  const uint32_t w0 = plan.start[r], w1 = plan.start[r + 1];
+  for (uint32_t i = w0; i < w1; i += kBatch) {
+    uint32_t x[kBatch][lh::NL];
+    long long c[kBatch];
 #pragma unroll
-    for (int l = 0; l < lh::NL; ++l) y[l] = pb[l * gb.sl];
+    for (int k = 0; k < kBatch; ++k) {
+      c[k] = 0;
+#pragma unroll
+      for (int l = 0; l < lh::NL; ++l) x[k][l] = 0;
+      if (i + k < w1) {
+        const uint32_t w = plan.word[i + k];
+        const Operand& o = ops.op[(w >> 6) & 3u];
+        c[k] = (int)w >> 8;
+        const uint32_t* src = o.ptr + r1 * o.s1 + r0 * o.s0 + (w & 63u) * o.sj + j * o.sn;
+#pragma unroll
+        for (int l = 0; l < lh::NL; ++l) x[k][l] = __ldg(src + l * o.sl);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k) {
+#pragma unroll
+      for (int l = 0; l < lh::NL; ++l) col[l] += c[k] * x[k][l];
+      m += c[k] < 0 ? -c[k] : 0;
+    }
   }
-  if (OP == kAdd) lh::add_mod(x, y, z);
-  if (OP == kSub) lh::sub_mod(x, y, z);
-  if (OP == kNeg) lh::neg_mod(x, z);
-  if (OP == kMulSmall) mul_small_mod(x, k, z);
-  uint32_t* po = out + (long long)row * (lh::NL * (long long)g.n) + j;
+  uint32_t z[lh::NL];
+  lh::sum_mod(col, 0, m, z);
+  uint32_t* po = out + (long long)t * (lh::NL * (long long)g.n) + j;
 #pragma unroll
   for (int l = 0; l < lh::NL; ++l) po[(long long)l * g.n] = z[l];
 }
@@ -100,49 +135,59 @@ unsigned blocks(long long rows, long long n) {
   return (unsigned)((rows * n + kBlock - 1) / kBlock);
 }
 
-// geom: null for dense operands (every input of the output's shape and
-// contiguous), else r0 and then each input's four element strides s1, s0
-// (the two row levels), sl (limb) and sn (column).
-template <int OP>
-int launch(void* out, const void* a, const void* b, long long rows, long long n,
-           const long long* geom, long long k, void* stream) {
-  const long long r0 = geom ? geom[0] : rows;
-  const Geom dense{0, lh::NL * n, n, 1};
-  const Geom ga = geom ? Geom{geom[1], geom[2], geom[3], geom[4]} : dense;
-  const Geom gb = geom && (OP == kAdd || OP == kSub) ? Geom{geom[5], geom[6], geom[7], geom[8]}
-                                                     : ga;
-  if (rows * n >= (1ll << 31) || r0 < 1 || rows % r0 != 0) return (int)cudaErrorInvalidValue;
-  if (OP == kMulSmall && (k < 1 || k >= (1 << 16))) return (int)cudaErrorInvalidValue;
-  fp_add_kernel<OP><<<blocks(rows, n), kBlock, 0, (cudaStream_t)stream>>>(
-      (uint32_t*)out, (const uint32_t*)a, (const uint32_t*)b, ga, gb,
-      Grid{(uint32_t)(rows * n), (uint32_t)n, (uint32_t)r0}, (uint32_t)k);
+}  // namespace
+
+// xs: nops operand pointers. rows: the output's lead rows (r1 * r0). plan:
+// R, start[0 .. R], then start[R] words. geom: r0, then per operand its term
+// count J_o and strides s1, s0, sj, sl, sn. Returns cudaErrorInvalidValue
+// for a plan or geometry past the bounds above.
+extern "C" int lh_fp_lincomb(void* out, const void* const* xs, long long nops, long long rows,
+                             long long n, const uint32_t* plan, const long long* geom,
+                             void* stream) {
+  const long long R = plan[0];
+  const long long r0 = geom[0];
+  if (nops < 1 || nops > kMaxOps || R < 1 || R > kMaxRows || r0 < 1 || rows % r0 != 0 ||
+      rows * R * n >= (1ll << 31))
+    return (int)cudaErrorInvalidValue;
+  Operands ops{};
+  long long terms[kMaxOps] = {};
+  for (int o = 0; o < nops; ++o) {
+    const long long* gs = geom + 1 + 6 * o;
+    terms[o] = gs[0];
+    if (terms[o] < 1 || terms[o] > kMaxTerms) return (int)cudaErrorInvalidValue;
+    ops.op[o] = Operand{(const uint32_t*)xs[o], gs[1], gs[2], gs[3], gs[4], gs[5]};
+  }
+  Plan p{};
+  p.rows = (uint32_t)R;
+  const uint32_t* start = plan + 1;
+  const uint32_t* words = plan + 2 + R;
+  if (start[0] != 0 || start[R] > (uint32_t)kMaxWords) return (int)cudaErrorInvalidValue;
+  for (int r = 0; r <= R; ++r) {
+    if (r < R && start[r + 1] < start[r]) return (int)cudaErrorInvalidValue;
+    p.start[r] = (uint8_t)start[r];
+  }
+  for (int r = 0; r < R; ++r) {
+    long long sum = 0;
+    for (uint32_t i = start[r]; i < start[r + 1]; ++i) {
+      const uint32_t w = words[i];
+      const long long c = (int)w >> 8;
+      const int o = (w >> 6) & 3;
+      if (o >= nops || (long long)(w & 63u) >= terms[o] || c == 0 || c > kMaxCoeff ||
+          -c > kMaxCoeff)
+        return (int)cudaErrorInvalidValue;
+      sum += c < 0 ? -c : c;
+      p.word[i] = w;
+    }
+    if (sum > kMaxSum) return (int)cudaErrorInvalidValue;
+  }
+  lincomb_kernel<<<blocks(rows * R, n), kBlock, 0, (cudaStream_t)stream>>>(
+      (uint32_t*)out, ops, p, Grid{(uint32_t)(rows * R * n), (uint32_t)n, (uint32_t)r0});
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-extern "C" int lh_fp_add(void* out, const void* a, const void* b, long long rows, long long n,
-                         const long long* geom, void* stream) {
-  return launch<kAdd>(out, a, b, rows, n, geom, 0, stream);
-}
-
-extern "C" int lh_fp_sub(void* out, const void* a, const void* b, long long rows, long long n,
-                         const long long* geom, void* stream) {
-  return launch<kSub>(out, a, b, rows, n, geom, 0, stream);
-}
-
-extern "C" int lh_fp_neg(void* out, const void* a, long long rows, long long n,
-                         const long long* geom, void* stream) {
-  return launch<kNeg>(out, a, a, rows, n, geom, 0, stream);
-}
-
-extern "C" int lh_fp_mul_small(void* out, const void* a, long long rows, long long n, long long k,
-                               const long long* geom, void* stream) {
-  return launch<kMulSmall>(out, a, a, rows, n, geom, k, stream);
-}
-
-// An empty kernel on K4's grid for (rows, n): the launch floor K4 is timed
-// against (chip_smoke.py floor_ms). Not a kernel of the port.
+// An empty kernel on K4's grid for (rows, n), rows counting every output Fp
+// (lead rows times R): the launch floor K4 is timed against (chip_smoke.py
+// floor_ms). Not a kernel of the port.
 extern "C" int lh_fp_add_empty(void* out, long long rows, long long n, void* stream) {
   (void)out;
   empty_kernel<<<blocks(rows, n), kBlock, 0, (cudaStream_t)stream>>>();

@@ -64,6 +64,18 @@ def _broadcast(op):
     return lambda a, b: op(*torch.broadcast_tensors(a, b))
 
 
+# A point's negation as a K4 plan over its coordinates' Fp values, by the
+# number of Fp values a coordinate has.
+_NEG_Y = {comps: fused.lincomb_plan(
+    f"g{comps}_neg", [[(-1 if comps <= i < 2 * comps else 1) if i == j else 0
+                       for j in range(3 * comps)] for i in range(3 * comps)])
+    for comps in (1, 2)}
+# The curve equation's Y^2 Z - X^3 - b Z^3 over (Y^2 Z, X^3, Z^3): b = 4 on
+# G1, 4 xi on G2 (4 xi z = 4 (z0 - z1) + 4 (z0 + z1) u).
+_ON_CURVE = {1: fused.lincomb_plan("g1_on_curve", ((1, -1, -4),)),
+             2: fused.lincomb_plan("g2_on_curve", ((1, 0, -1, 0, -4, 4), (0, 1, 0, -1, -4, -4)))}
+
+
 _FP_OPS = (lb.add, lb.sub, lb.neg, lb.mul_small, lb.is_zero)
 _FP_PLAIN_OPS = (fused.fp_add_plain, fused.fp_sub_plain, fused.fp_neg_plain,
                  fused.fp_mul_small_plain, lb.is_zero)
@@ -103,11 +115,16 @@ class _Group:
         return self.f.is_zero(self.coords(p)[2])
 
     def on_curve(self, p):
+        """Y^2 Z - X^3 - b Z^3 == 0, its sum one K4 launch."""
         f = self.f
         X, Y, Z = self.coords(p)
         y2, x2, z2 = f.mul_many([Y, X, Z], [Y, X, Z])
-        y2z, x3, z3 = f.mul_many([y2, x2, z2], [Z, X, Z])
-        return f.is_zero(f.sub(y2z, f.add(x3, self.b3_mul(z3, 1))))
+        ax = -(f.tail_ndim + 1)
+        prods = f.mul(torch.stack(torch.broadcast_tensors(y2, x2, z2), dim=ax),
+                      torch.stack(torch.broadcast_tensors(Z, X, Z), dim=ax))
+        comps = f.tail_ndim - 1
+        rhs = fused.fp_lincomb(prods.flatten(-4, -3) if comps == 2 else prods, _ON_CURVE[comps])
+        return f.is_zero(rhs if comps == 2 else rhs.squeeze(-3))
 
     def select(self, mask, a, b):
         idx = (Ellipsis,) + (None,) * self.f.tail_ndim + (slice(None),)
@@ -152,8 +169,10 @@ class _Group:
         return [out.select(axis, i) for i in range(len(xs))]
 
     def neg(self, p):
-        X, Y, Z = self.coords(p)
-        return self.pack(X, self.f.neg(Y), Z)
+        """(X, -Y, Z): one K4 launch writing the whole point."""
+        comps = self.f.tail_ndim - 1                # an Fp coordinate 1, an Fp2 one 2
+        terms = p.flatten(-4, -3) if comps == 2 else p
+        return fused.fp_lincomb(terms, _NEG_Y[comps]).view(p.shape)
 
     def mul_fixed_scalar(self, p, k: int):
         """[k]P for a public scalar: double-and-add over k's bits."""
@@ -297,11 +316,13 @@ def _psi_consts(device):
 
 
 def g2_psi(p):
-    X, Y, Z = G2.coords(p)
+    """(cx conj(X), cy conj(Y), conj(Z)): the three conjugations in one K4
+    launch."""
     cx, cy = _psi_consts(p.device)
-    prod = tw.fp2_mul(torch.stack([tw.fp2_conj(X), tw.fp2_conj(Y)], dim=-4),
+    conj = tw.fp2_conj(p)
+    prod = tw.fp2_mul(conj[..., :2, :, :, :],
                       torch.stack(torch.broadcast_tensors(cx, cy), dim=-4))
-    return G2.pack(prod.select(-4, 0), prod.select(-4, 1), tw.fp2_conj(Z))
+    return G2.pack(prod.select(-4, 0), prod.select(-4, 1), conj.select(-4, 2))
 
 
 def g2_in_subgroup(p):
@@ -311,10 +332,14 @@ def g2_in_subgroup(p):
 
 
 def g2_clear_cofactor(p):
-    """Budroni-Pintore psi decomposition (curves.g2_clear_cofactor)."""
-    xp = G2.neg(G2.mul_fixed_scalar(p, BLS_X_ABS))
+    """Budroni-Pintore psi decomposition (curves.g2_clear_cofactor). -[x]P
+    is [|x|]P itself (x < 0; the negation of canonical limbs is exact both
+    ways), and -P is formed once."""
+    neg_xp = G2.mul_fixed_scalar(p, BLS_X_ABS)
+    xp = G2.neg(neg_xp)
     xxp = G2.neg(G2.mul_fixed_scalar(xp, BLS_X_ABS))
-    term1 = G2.add(G2.add(xxp, G2.neg(xp)), G2.neg(p))
-    term2 = g2_psi(G2.add(xp, G2.neg(p)))
+    neg_p = G2.neg(p)
+    term1 = G2.add(G2.add(xxp, neg_xp), neg_p)
+    term2 = g2_psi(G2.add(xp, neg_p))
     term3 = g2_psi(g2_psi(G2.double(p)))
     return G2.add(G2.add(term1, term2), term3)

@@ -9,7 +9,7 @@ XLA field/tower products they fuse, ``ops/limbs.py`` / ``ops/tower.py``
     K2  fp2_mul / fp2_sqr    csrc/fp2_mul.cu   replaces fused.py:279 _fwd_call + :319 _inv_call (offset)
     K3  fp12_sqr / fp12_mul / fp12_mul_line
                              csrc/fp12_op.cu   replaces fused.py:578 _k3_fp12_call
-    K4  fp_add / fp_sub / fp_neg / fp_mul_small
+    K4  fp_lincomb (fp_add / fp_sub / fp_neg / fp_mul_small its one-row plans)
                              csrc/fp_add.cu    no Pallas counterpart: the additions XLA
                                                fuses (ops/bm/limbs.py:343-353 add / sub / neg)
     K5  g1_add / g1_double / g2_add / g2_double
@@ -47,7 +47,8 @@ tables are checked against K3's accumulator bounds. K2's plain table
 three Karatsuba products (a square two); the outputs are canonical, so
 the two still agree bit for bit. K4's plain versions run the 12-limb
 carry and borrow chains as int64 torch ops with a lookahead on packed
-bit vectors.
+bit vectors; fp_lincomb_plain folds a combination's terms with them one
+by one, where the kernel sums them in one pass.
 
 What bounds the kernels on an H100 (3.35 TB/s, 16.75e12 32-bit
 multiply-adds/s, i.e. 5 multiply-adds per byte), counting the work each
@@ -64,9 +65,11 @@ products to the lanes of a block: a warp per group of at most 32
 products, one product per lane, the groups and their signed column sums
 planned here (``k3_plan_words``) and handed to the kernel as a generated
 header; its square runs 78 distinct Fp products, its product the 144 of
-the schoolbook. None uses tensor cores. K4 needs no multiplies and moves
-96 + 48 bytes an element (neg and mul_small 48 + 48): bound by bytes, one
-thread per element, its inputs strided or broadcast in place (no copy).
+the schoolbook. None uses tensor cores. K4 evaluates a plan of R signed
+linear combinations of J Fp terms (a whole step's additions, xi folded
+into the coefficients) in one launch, one thread per output Fp and
+column, its inputs strided or broadcast in place (no copy): (J + R) 48
+bytes a column and multiplies by small integers only, bound by bytes.
 K5 needs 3,024 (G1 add) to 7,776 (G2 add) multiply-adds per 432-864 bytes
 a point, bound by operations, but at the paths' widths (16-4096 points) it
 is its launch floor plus one block's critical path: its schedule
@@ -103,7 +106,7 @@ R_BITS = 384
 launches = {
     "fp_mul": 0, "fp_sqr": 0, "fp2_mul": 0, "fp2_sqr": 0,
     "fp12_sqr": 0, "fp12_mul": 0, "fp12_line": 0,
-    "fp_add": 0, "fp_sub": 0, "fp_neg": 0, "fp_mul_small": 0,
+    "fp_add": 0, "fp_sub": 0, "fp_neg": 0, "fp_mul_small": 0, "fp_lincomb": 0,
     "g1_add": 0, "g1_double": 0, "g2_add": 0, "g2_double": 0,
     "miller_dbl": 0, "miller_add": 0, "miller_chain": 0, "fp_inv": 0, "fp_pow": 0,
     "fp2_pow": 0,
@@ -545,6 +548,32 @@ def fp_mul_small_plain(a, k: int):
     return acc
 
 
+def fp_lincomb_plain(x, coeffs):
+    """K4's plain version of fp_lincomb: each output row folded term by term,
+    the first nonzero term as it is (fp_neg_plain if negative), each later
+    one by fp_add_plain or fp_sub_plain, a term of |c| > 1 first multiplied
+    by fp_mul_small_plain; a row of zeros is 0. The kernel sums the terms in
+    one pass instead; both are canonical, so they agree bit for bit."""
+    xs = _lincomb_operands(x)
+    terms = [t for x in xs for t in x.unbind(-3)]
+    lead, n = _lincomb_shape(xs)
+    shape = lead + (NL, n)
+    rows = []
+    for row in coeffs:
+        acc = None
+        for c, t in zip(row, terms):
+            if not c:
+                continue
+            v = t if abs(c) == 1 else fp_mul_small_plain(t, abs(c))
+            if acc is None:
+                acc = fp_neg_plain(v) if c < 0 else v
+            else:
+                acc = (fp_sub_plain if c < 0 else fp_add_plain)(acc, v)
+        rows.append(torch.zeros(shape, dtype=torch.int32, device=xs[0].device) if acc is None
+                    else acc.expand(shape))
+    return torch.stack(rows, dim=-3)
+
+
 # --- K5 and K6: the schedule of csrc/curve_op.cu ------------------------------
 #
 # K5 (csrc/curve_op.cu) runs one complete Renes-Costello-Batina addition or
@@ -560,7 +589,7 @@ def fp_mul_small_plain(a, k: int):
 #   product   W = A B, 24 limbs, unreduced; A and B are each a linear
 #             combination sum_k c_k s_k of Fp values in the block's slots
 #             (the inputs, or earlier levels' reductions), evaluated
-#             canonically mod p (K4's chains for +-1 coefficients, else one
+#             canonically mod p (fp.cuh's chains for +-1 coefficients, else one
 #             pass with a quotient estimate: K5_INV_HI), so W < p^2; a term
 #             may be an Fp of P (K6), which multiplies each component of an
 #             Fp2 in a product of its own;
@@ -602,7 +631,8 @@ K6_MAX_STEPS = 128                     # csrc/curve_op.cu kMaxSteps
 def _k5_inv_hi() -> float:
     """2^352 / p (1 - 2^-51), rounded down to a double: an operand's quotient
     estimate q = trunc(v_hi * this), v_hi = floor(v / 2^352) < 2^47, is
-    floor(v / p) or one less (csrc/curve_op.cu combine)."""
+    floor(v / p) or one less (csrc/fp.cuh sum_mod, as kInvHi: K4's linear
+    combinations and K5's operands)."""
     from fractions import Fraction
     target = Fraction(1 << 352, P) * (1 - Fraction(1, 1 << 51))
     x = float(target)
@@ -850,8 +880,7 @@ def k5_plan_header() -> str:
     lines = ["// Generated by lighthouse_tpu_torch/ops/fused.py (k5_plan_header) from",
              "// k5_schedule: the schedule of csrc/curve_op.cu. Do not edit.",
              "#pragma once", "#include <cstdint>",
-             f"#define LH_K5_LIN {K5_LIN}", f"#define LH_K5_RED {K5_RED}",
-             f"#define LH_K5_INV_HI {K5_INV_HI.hex()}"]
+             f"#define LH_K5_LIN {K5_LIN}", f"#define LH_K5_RED {K5_RED}"]
     for op in K5_OPS + K6_OPS:
         words = k5_plan_words(op)
         kernel = "K6" if op in K6_OPS else "K5"
@@ -875,7 +904,7 @@ PLAIN = {
     "fp12_sqr": fp12_sqr_plain, "fp12_mul": fp12_mul_plain,
     "fp12_line": fp12_mul_line_plain,
     "fp_add": fp_add_plain, "fp_sub": fp_sub_plain, "fp_neg": fp_neg_plain,
-    "fp_mul_small": fp_mul_small_plain,
+    "fp_mul_small": fp_mul_small_plain, "fp_lincomb": fp_lincomb_plain,
 }
 
 
@@ -997,11 +1026,13 @@ _KERNELS = {
     "fp12_sqr": ("fp12_op", "lh_fp12_sqr", ("fp12",)),
     "fp12_mul": ("fp12_op", "lh_fp12_mul", ("fp12", "fp12")),
     "fp12_line": ("fp12_op", "lh_fp12_line", ("fp12", "line")),
-    # K4 launches through _run_additive, not _run.
-    "fp_add": ("fp_add", "lh_fp_add", ("fp", "fp")),
-    "fp_sub": ("fp_add", "lh_fp_sub", ("fp", "fp")),
-    "fp_neg": ("fp_add", "lh_fp_neg", ("fp",)),
-    "fp_mul_small": ("fp_add", "lh_fp_mul_small", ("fp",)),
+    # K4, one kernel: fp_lincomb launches through _run_lincomb, its one-row
+    # plans through _run_additive. fp_lincomb's operands are (..., J, 12, n).
+    "fp_add": ("fp_add", "lh_fp_lincomb", ("fp", "fp")),
+    "fp_sub": ("fp_add", "lh_fp_lincomb", ("fp", "fp")),
+    "fp_neg": ("fp_add", "lh_fp_lincomb", ("fp",)),
+    "fp_mul_small": ("fp_add", "lh_fp_lincomb", ("fp",)),
+    "fp_lincomb": ("fp_add", "lh_fp_lincomb", ("fp",)),
     # K5 launches through _run_curve.
     "g1_add": ("curve_op", "lh_g1_add", ("g1", "g1")),
     "g1_double": ("curve_op", "lh_g1_dbl", ("g1",)),
@@ -1107,13 +1138,28 @@ def fp12_mul_line(a, line):
 
 # --- K4 ---------------------------------------------------------------------
 #
-# The additive layer runs 7k-12k times a verify, so its wrapper's host time
-# is the eager path's: it resolves the C function once, checks only what a
-# wrong call would corrupt (dtype, the limb axis, the device), and hands
-# strided and broadcast inputs to the kernel as they are.
+# K4 evaluates a plan of signed linear combinations, out[r] = sum_j C[r][j]
+# x[j] mod p, in one launch (csrc/fp_add.cu): the terms x[j] are the Fp
+# values on axis -3 of one operand tensor (..., J, 12, n), or of up to
+# LINCOMB_MAX_OPS of them in order, strided or broadcast, read in place;
+# the output is a fresh (..., R, 12, n), R = len(C). A call site keeps its
+# coefficient matrix as a constant tuple of rows; its packed plan and each
+# operand layout's geometry are made once and kept. fp_add, fp_sub, fp_neg
+# and fp_mul_small are one-row plans of the same kernel, each with its own
+# launch count.
 
+LINCOMB_MAX_OPS = 4
+LINCOMB_MAX_TERMS = 64          # J_o, a term's 6 bits in a plan word
+LINCOMB_MAX_ROWS = 32           # R
+LINCOMB_MAX_WORDS = 128         # nonzero coefficients of a plan
+LINCOMB_MAX_COEFF = (1 << 16) - 1
+LINCOMB_MAX_SUM = (1 << 18) - 1     # sum_j |C[r][j]|: v < 2^18 p, v_hi < 2^47
 MUL_SMALL_MAX = 1 << 16
 _FNS: dict = {}
+_LINCOMB_GEOMETRY: dict = {}    # ((shape, strides) per operand) -> (lead, rows, n, geometry)
+# The paths' plans by call site, registered where they are defined: chip_smoke
+# holds the kernel at each of them.
+LINCOMB_PLANS: dict = {}
 
 
 def _kernel_fn(name):
@@ -1140,7 +1186,7 @@ def _broadcast_shape(s, t):
 
 def _geometry(shape, xs, tail: int = 2):
     """Each input's element strides over an output of `shape`, its lead
-    axes (all but the last `tail`: (12, n) for K4, (3, 12, n) or
+    axes (all but the last `tail`: (J, 12, n) for K4, (3, 12, n) or
     (3, 2, 12, n) for K5) folded into two row levels (r1, r0): -> (r0,
     [(s1, s0, strides of the tail axes...) per input]), or None where the
     lead axes fold into more than two levels. A broadcast axis has stride
@@ -1173,7 +1219,7 @@ def _geometry(shape, xs, tail: int = 2):
 
 
 def _layout(xs, tail: int):
-    """The output of one K4 or K5 launch over inputs xs (broadcast), the
+    """The output of one K5 launch over inputs xs (broadcast), the
     inputs its pointers will refer to, its rows and n, and the inputs'
     folded strides from _geometry (None for dense inputs, each of the
     output's shape and contiguous, and for lead axes that fold into no two
@@ -1202,31 +1248,120 @@ def _geometry_array(folded):
     return (ctypes.c_longlong * (1 + sum(map(len, strides))))(r0, *(v for g in strides for v in g))
 
 
-def _k4_args(name, xs, k):
-    """The output of one K4 launch and the C entry point's arguments but the
-    stream: the data pointers, rows, n, k for mul_small, and the geometry
-    (None for dense inputs, else an int64 array of r0 and each input's
-    strides). Also returns the inputs the pointers refer to, which the
-    caller keeps alive over the launch."""
-    out, xs, rows, n, folded = _layout(xs, 2)
-    args = [out.data_ptr()] + [x.data_ptr() for x in xs] + [rows, n]
-    if name == "fp_mul_small":
-        args.append(k)
-    args.append(_geometry_array(folded))
-    return out, xs, args
+def _check_coeffs(coeffs, terms):
+    """The bounds csrc/fp_add.cu states, on a coefficient matrix over the
+    operands' term counts `terms`."""
+    j = sum(terms)
+    if not 1 <= len(coeffs) <= LINCOMB_MAX_ROWS:
+        raise ValueError(f"fp_lincomb: {len(coeffs)} rows, the kernel takes 1 to "
+                         f"{LINCOMB_MAX_ROWS}")
+    if not all(1 <= t <= LINCOMB_MAX_TERMS for t in terms):
+        raise ValueError(f"fp_lincomb: operands of {terms} terms, at most "
+                         f"{LINCOMB_MAX_TERMS} each")
+    words = 0
+    for row in coeffs:
+        if len(row) != j:
+            raise ValueError(f"fp_lincomb: a row of {len(row)} coefficients for {j} terms")
+        if not all(type(c) is int and abs(c) <= LINCOMB_MAX_COEFF for c in row):
+            raise ValueError(f"fp_lincomb: coefficients {row} are not ints of magnitude at most "
+                             f"{LINCOMB_MAX_COEFF}")
+        if sum(map(abs, row)) > LINCOMB_MAX_SUM:
+            raise ValueError(f"fp_lincomb: a row's |coefficients| sum past {LINCOMB_MAX_SUM}")
+        words += sum(1 for c in row if c)
+    if words > LINCOMB_MAX_WORDS:
+        raise ValueError(f"fp_lincomb: {words} nonzero coefficients, at most "
+                         f"{LINCOMB_MAX_WORDS}")
 
 
-def _check_additive(name, xs, k):
+@lru_cache(maxsize=512)
+def _lincomb_plan(coeffs, terms):
+    """The plan the C entry point reads (uint32): R, each row's first word
+    (R + 1 offsets), then one word per nonzero coefficient, row by row: term
+    | operand << 6 | coefficient << 8 (signed, 24 bits)."""
+    _check_coeffs(coeffs, terms)
+    where = [(o, j) for o, t in enumerate(terms) for j in range(t)]
+    words, start = [], [0]
+    for row in coeffs:
+        words += [j | o << 6 | (c & 0xFFFFFF) << 8 for (o, j), c in zip(where, row) if c]
+        start.append(len(words))
+    vals = [len(coeffs)] + start + words
+    return (ctypes.c_uint32 * len(vals))(*vals)
+
+
+def lincomb_plan(name: str, coeffs):
+    """A call site's coefficient matrix as the tuple of rows fp_lincomb
+    takes, checked, and registered under `name` in LINCOMB_PLANS."""
+    coeffs = tuple(tuple(row) for row in coeffs)
+    _check_coeffs(coeffs, (len(coeffs[0]),))
+    LINCOMB_PLANS[name] = coeffs
+    return coeffs
+
+
+def _lincomb_operands(x):
+    return (x,) if isinstance(x, torch.Tensor) else tuple(x)
+
+
+def _check_lincomb(xs, coeffs):
+    if not 1 <= len(xs) <= LINCOMB_MAX_OPS:
+        raise ValueError(f"fp_lincomb: {len(xs)} operands, the kernel takes 1 to "
+                         f"{LINCOMB_MAX_OPS}")
     a = xs[0]
     for x in xs:
         if not isinstance(x, torch.Tensor) or x.dtype != torch.int32:
-            raise TypeError(f"{name}: operands must be int32 tensors")
-        if x.dim() < 2 or x.shape[-2] != NL:
-            raise ValueError(f"{name}: operand shape {tuple(x.shape)} does not end in (12, n)")
+            raise TypeError("fp_lincomb: operands must be int32 tensors")
+        if x.dim() < 3 or x.shape[-2] != NL:
+            raise ValueError(f"fp_lincomb: operand shape {tuple(x.shape)} does not end in "
+                             "(J, 12, n)")
         if x.device != a.device:
-            raise ValueError(f"{name}: operands on {a.device} and {x.device}")
-    if name == "fp_mul_small" and not (isinstance(k, int) and 1 <= k < MUL_SMALL_MAX):
-        raise ValueError(f"fp_mul_small: k = {k!r} is not an int in [1, 2^16)")
+            raise ValueError(f"fp_lincomb: operands on {a.device} and {x.device}")
+    return _lincomb_plan(coeffs, tuple(x.shape[-3] for x in xs))
+
+
+def _lincomb_shape(xs):
+    """The output's lead axes and n: the operands' broadcast."""
+    lead, n = (), 1
+    for x in xs:
+        lead = _broadcast_shape(lead, x.shape[:-3])
+        n = _broadcast_shape((n,), x.shape[-1:])[0]
+    return tuple(lead), n
+
+
+def _lincomb_geometry(xs):
+    """(lead, rows, n, geometry array) of one launch: r0, then per operand
+    its term count and element strides s1, s0 over the output's two row
+    levels and sj, sl, sn; or None for the geometry where the lead axes fold
+    into no two levels."""
+    lead, n = _lincomb_shape(xs)
+    folded = _geometry(lead + (1, NL, n), xs, 3)
+    if folded is None:
+        return lead, 0, n, None
+    r0, strides = folded
+    vals = [r0] + [v for x, st in zip(xs, strides) for v in (x.shape[-3],) + tuple(st)]
+    return lead, math.prod(lead), n, (ctypes.c_longlong * len(vals))(*vals)
+
+
+def _lincomb_args(xs, coeffs, plan=None):
+    """The output of one K4 launch and the C entry point's arguments but the
+    stream: the output's data pointer, the operands' (an array), their
+    count, the lead rows, n, the plan (`plan`, or packed here) and the
+    geometry. Also returns the operands the pointers refer to, which the
+    caller keeps alive over the launch (copied dense where their lead axes
+    fold into no two levels)."""
+    key = tuple((x.shape, x.stride()) for x in xs)
+    geo = _LINCOMB_GEOMETRY.get(key)
+    if geo is None:
+        geo = _lincomb_geometry(xs)
+        if geo[3] is None:
+            xs = tuple(x.expand(geo[0] + x.shape[-3:]).contiguous() for x in xs)
+            geo = _lincomb_geometry(xs)
+        elif len(_LINCOMB_GEOMETRY) < 256:
+            _LINCOMB_GEOMETRY[key] = geo
+    lead, rows, n, geom = geo
+    out = torch.empty(lead + (len(coeffs), NL, n), dtype=torch.int32, device=xs[0].device)
+    ptrs = (ctypes.c_void_p * len(xs))(*(x.data_ptr() for x in xs))
+    if plan is None:
+        plan = _lincomb_plan(coeffs, tuple(x.shape[-3] for x in xs))
+    return out, xs, [out.data_ptr(), ptrs, len(xs), rows, n, plan, geom]
 
 
 def _call_kernel(name, args, dev):
@@ -1243,6 +1378,58 @@ def _call_kernel(name, args, dev):
     launches[name] += 1
 
 
+def _run_lincomb(xs, coeffs):
+    plan = _check_lincomb(xs, coeffs)
+    dev = xs[0].device
+    if dev.type == "cpu":
+        return fp_lincomb_plain(xs, coeffs)
+    if dev.type != "cuda":
+        raise ValueError(f"fp_lincomb: no kernel for device {dev}")
+    out, _inputs, args = _lincomb_args(xs, coeffs, plan)
+    if out.numel():
+        _call_kernel("fp_lincomb", args, dev)
+    return out
+
+
+def fp_lincomb(x, coeffs):
+    """K4: out[..., r, :, :] = sum_j coeffs[r][j] x_j mod p, one launch. x is
+    a tensor (..., J, 12, n) whose terms x_j lie on axis -3, or a sequence
+    of up to four such tensors, their terms in order; the operands
+    broadcast. coeffs is a tuple of R tuples of J ints (lincomb_plan), within
+    the bounds of csrc/fp_add.cu. -> (..., R, 12, n), canonical."""
+    return _run_lincomb(_lincomb_operands(x), coeffs if type(coeffs) is tuple
+                        else tuple(tuple(row) for row in coeffs))
+
+
+# The older entry points, one-row plans over their operands as single terms.
+_ONE_ROW = {"fp_add": ((1, 1),), "fp_sub": ((1, -1),), "fp_neg": ((-1,),)}
+
+
+@lru_cache(maxsize=64)
+def _mul_small_row(k: int):
+    return ((k,),)
+
+
+def _k4_args(name, xs, k):
+    """_lincomb_args for fp_add, fp_sub, fp_neg or fp_mul_small (k its
+    multiple) on (..., 12, n) operands."""
+    return _lincomb_args(tuple(x.unsqueeze(-3) for x in xs),
+                         _mul_small_row(k) if name == "fp_mul_small" else _ONE_ROW[name])
+
+
+def _check_additive(name, xs, k):
+    a = xs[0]
+    for x in xs:
+        if not isinstance(x, torch.Tensor) or x.dtype != torch.int32:
+            raise TypeError(f"{name}: operands must be int32 tensors")
+        if x.dim() < 2 or x.shape[-2] != NL:
+            raise ValueError(f"{name}: operand shape {tuple(x.shape)} does not end in (12, n)")
+        if x.device != a.device:
+            raise ValueError(f"{name}: operands on {a.device} and {x.device}")
+    if name == "fp_mul_small" and not (isinstance(k, int) and 1 <= k < MUL_SMALL_MAX):
+        raise ValueError(f"fp_mul_small: k = {k!r} is not an int in [1, 2^16)")
+
+
 def _run_additive(name, xs, k=0):
     _check_additive(name, xs, k)
     dev = xs[0].device
@@ -1253,7 +1440,7 @@ def _run_additive(name, xs, k=0):
     out, _inputs, args = _k4_args(name, xs, k)
     if out.numel():
         _call_kernel(name, args, dev)
-    return out
+    return out.squeeze(-3)
 
 
 def fp_add(a, b):
@@ -1522,6 +1709,7 @@ WRAPPERS = {
     "fp_mul": fp_mul, "fp_sqr": fp_sqr, "fp2_mul": fp2_mul, "fp2_sqr": fp2_sqr,
     "fp12_sqr": fp12_sqr, "fp12_mul": fp12_mul, "fp12_line": fp12_mul_line,
     "fp_add": fp_add, "fp_sub": fp_sub, "fp_neg": fp_neg, "fp_mul_small": fp_mul_small,
+    "fp_lincomb": fp_lincomb,
     "g1_add": g1_add, "g1_double": g1_double, "g2_add": g2_add, "g2_double": g2_double,
     "miller_dbl": miller_dbl, "miller_add": miller_add, "miller_chain": miller_chain,
     "fp_inv": fp_inv, "fp_pow": fp_pow, "fp2_pow": fp2_pow,

@@ -27,8 +27,24 @@ from ..crypto.bls.constants import (
     SSWU_Z2,
 )
 from . import curves as cv
+from . import fused
 from . import limbs as lb
 from . import tower as tw
+
+# K4 plans (one launch each). SSWU over (tv1^2, tv1, 1): tv2 = tv1^2 + tv1,
+# tv2 + 1 and -tv2.
+_TV, _TV1, _ONE = (tw._fp2(i) for i in range(3))
+_TV2 = tw._sum((1, _TV), (1, _TV1))
+_SSWU_TV2 = tw._plan("sswu_tv2", 6, _TV2, tw._sum((1, _TV2), (1, _ONE)), tw._sum((-1, _TV2)))
+# g(x)'s numerator over (xn^3, xd^3, xn xd^2, a xn xd^2, b xd^3): xn^3 + a xn
+# xd^2 + b xd^3.
+_SSWU_GXN = tw._plan("sswu_gxn", 10, tw._sum((1, tw._fp2(0)), (1, tw._fp2(3)), (1, tw._fp2(4))))
+_NEG2 = tw._plan("fp2_neg", 2, tw._sum((-1, _TV)))
+# The isogeny's four polynomials (x_num, x_den, y_num, y_den), four Fp2
+# products each (x_den's last by a zero coefficient): each the sum of its
+# row's products.
+_ISO_SUMS = tw._plan("iso_map_sums", 32,
+                     *(tw._sum(*((1, tw._fp2(4 * i + k)) for k in range(4))) for i in range(4)))
 
 
 class _Consts:
@@ -44,6 +60,7 @@ class _Consts:
         self.xd = stack(list(ISO3_X_DEN) + [(0, 0)])
         self.yn = stack(ISO3_Y_NUM)
         self.yd = stack(ISO3_Y_DEN)
+        self.iso = torch.stack([self.xn, self.xd, self.yn, self.yd])   # (4, 4, 2, 12, 1)
 
 
 @lru_cache(maxsize=None)
@@ -84,11 +101,12 @@ def map_to_curve_sswu_projective(u):
     """(..., 2, 12, n) field elements -> (x_num, x_den, y) on E2'."""
     c = consts(u.device)
     tv1 = tw.fp2_mul(c.z, tw.fp2_sqr(u))
-    tv2 = lb.add(tw.fp2_sqr(tv1), tv1)
-    tv2_zero = tw.fp2_is_zero(tv2)
     one = tw.consts(u.device).fp2_one
-    xn = tw.fp2_mul(c.b, lb.add(tv2, one))
-    den_inner = tw.fp2_select(tv2_zero, c.z.expand_as(tv2), lb.neg(tv2))
+    tv2, tv2_1, tv2_neg = fused.fp_lincomb((tw.fp2_sqr(tv1), tv1, one),
+                                           _SSWU_TV2).unflatten(-3, (3, 2)).unbind(-4)
+    tv2_zero = tw.fp2_is_zero(tv2)
+    xn = tw.fp2_mul(c.b, tv2_1)
+    den_inner = tw.fp2_select(tv2_zero, c.z.expand_as(tv2), tv2_neg)
     xd = tw.fp2_mul(c.a, den_inner)
 
     sq = tw.fp2_sqr(torch.stack([xn, xd], dim=-4))
@@ -98,7 +116,7 @@ def map_to_curve_sswu_projective(u):
     xn3, xd3, xnxd2 = m.select(-4, 0), m.select(-4, 1), m.select(-4, 2)
     m2 = tw.fp2_mul(torch.stack([xnxd2, xd3], dim=-4),
                     torch.stack(torch.broadcast_tensors(c.a, c.b), dim=-4))
-    gxn = lb.add(lb.add(xn3, m2.select(-4, 0)), m2.select(-4, 1))
+    gxn = fused.fp_lincomb((tw._terms(m, 1), tw._terms(m2, 1)), _SSWU_GXN)
     is_sq, y1 = tw.fp2_sqrt_ratio(gxn, xd3)
 
     m3 = tw.fp2_mul(torch.stack([tv1, tw.fp2_mul(tv1, u)], dim=-4),
@@ -107,7 +125,7 @@ def map_to_curve_sswu_projective(u):
     xn_out = tw.fp2_select(is_sq, xn, x2n)
     y = tw.fp2_select(is_sq, y1, y2)
     flip = torch.logical_xor(_sgn0_fp2(u), _sgn0_fp2(y))
-    y = tw.fp2_select(flip, lb.neg(y), y)
+    y = tw.fp2_select(flip, fused.fp_lincomb(y, _NEG2), y)
     return xn_out, xd, y
 
 
@@ -121,15 +139,11 @@ def iso_map_homogeneous(xn, xd, y):
     xn3, xd3, xn2xd = m.select(-4, 0), m.select(-4, 1), m.select(-4, 2)
     xnxd2 = tw.fp2_mul(xn, xd2)
     basis = torch.stack([xd3, xnxd2, xn2xd, xn3], dim=-4)
-
-    def hom_eval(coeffs):
-        prod = tw.fp2_mul(coeffs, basis)
-        acc = prod.select(-4, 0)
-        for i in range(1, coeffs.shape[0]):
-            acc = lb.add(acc, prod.select(-4, i))
-        return acc
-
-    xnum, xden, ynum, yden = (hom_eval(k) for k in (c.xn, c.xd, c.yn, c.yd))
+    # The four polynomials' 16 products in one K2 call, their sums in one K4
+    # launch.
+    prod = tw.fp2_mul(c.iso, basis.unsqueeze(-5))             # (..., 4, 4, 2, 12, n)
+    sums = fused.fp_lincomb(tw._terms(prod, 2), _ISO_SUMS).unflatten(-3, (4, 2))
+    xnum, xden, ynum, yden = sums.unbind(-4)
     m2 = tw.fp2_mul(torch.stack([xnum, ynum, xden], dim=-4),
                     torch.stack([yden, y, yden], dim=-4))
     X, yyn, Z = m2.select(-4, 0), m2.select(-4, 1), m2.select(-4, 2)

@@ -9,10 +9,11 @@ equality is limb equality and comparisons with JAX go through integers mod
 p (``convert.to_ints``).
 
 The products are the K1 kernel (``fused.fp_mul``); additions, subtractions,
-negations and small multiples are the K4 kernel (``fused.fp_add`` ...),
-whose operands may broadcast; the inverse and a public-exponent power are
-the K7 kernel (``fused.fp_inv``, ``fused.fp_pow``). All return canonical
-values.
+negations and small multiples are the K4 kernel (``fused.fp_add`` ..., one-row
+plans of its linear combinations, ``fused.fp_lincomb``, which the tower and
+curve steps call with a whole step's sums), whose operands may broadcast;
+the inverse and a public-exponent power are the K7 kernel
+(``fused.fp_inv``, ``fused.fp_pow``). All return canonical values.
 """
 
 from functools import lru_cache

@@ -137,7 +137,8 @@ def _fp12_pow_abs(f, k: int):
 def final_exponentiation(f):
     """f^((p^12 - 1) / r): easy part, then the x-chain hard part
     (ops/bm/pairing.final_exponentiation)."""
-    t = tw.fp12_mul(tw.fp12_conj(f), tw.fp12_inv(f))
+    f_conj = tw.fp12_conj(f)
+    t = tw.fp12_mul(f_conj, tw.fp12_inv(f, f_conj))
     t = tw.fp12_mul(tw.fp12_frob_n(t, 2), t)
     g1 = _fp12_pow_abs(t, _E_EXP)
     g2 = tw.fp12_mul(tw.fp12_conj(_fp12_pow_abs(g1, BLS_X_ABS)), tw.fp12_frob(g1))

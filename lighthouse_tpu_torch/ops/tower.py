@@ -11,7 +11,9 @@ this module follows function for function) and ``lighthouse_tpu/ops/tower.py``
 Fp2 products are the K2 kernel and the public-exponent Fp2 power the K7
 kernel; the Fp12 square, product and sparse-line product are the K3
 kernel. Everything else stacks its operands so that one kernel call does
-all the products of a step.
+all the products of a step, and a step's additions, with xi and the
+conjugations folded into their coefficients, are one K4 launch
+(``fused.fp_lincomb``) over the products as they come out.
 """
 
 from functools import lru_cache
@@ -26,6 +28,58 @@ from . import limbs as lb
 add = lb.add
 sub = lb.sub
 neg = lb.neg
+
+
+# --- K4 plans: each step's additions as one signed linear combination over
+# a term axis (the Fp values of a tensor's last Fp2 axes, component minor).
+
+
+def _fp2(i):
+    """Fp2 value i of a term axis, as one {term: coefficient} per component."""
+    return {2 * i: 1}, {2 * i + 1: 1}
+
+
+_sum = fused._comb          # sum c x over (c, x) pairs of Fp2 values, per component
+
+
+def _plan(name, width, *fp2s):
+    """The plan whose outputs are the Fp2 values fp2s over `width` terms."""
+    return fused.lincomb_plan(name, [[v.get(j, 0) for j in range(width)]
+                                     for x in fp2s for v in x])
+
+
+def _terms(x, axes: int):
+    """x (..., a_1 .. a_axes, 2, 12, n), its last `axes` axes of Fp2 values
+    and their components as one term axis (..., J, 12, n): a view of a
+    contiguous x."""
+    return x.flatten(-axes - 3, -3)
+
+
+_X0, _X1, _X2 = (_fp2(i) for i in range(3))
+_CONJ = _plan("fp2_conj", 2, ({0: 1}, {1: -1}))
+_XI = _plan("fp2_mul_by_xi", 2, fused._xi(_X0))
+# fp6_mul's nine products p00, p11, p22, p01, p10, p02, p20, p12, p21:
+# c0 = p00 + xi (p12 + p21), c1 = p01 + p10 + xi p22, c2 = p02 + p11 + p20.
+_P = dict(zip(("00", "11", "22", "01", "10", "02", "20", "12", "21"),
+              (_fp2(i) for i in range(9))))
+_FP6_MUL = _plan("fp6_mul", 18,
+                 _sum((1, _P["00"]), (1, fused._xi(_sum((1, _P["12"]), (1, _P["21"]))))),
+                 _sum((1, _P["01"]), (1, _P["10"]), (1, fused._xi(_P["22"]))),
+                 _sum((1, _P["02"]), (1, _P["11"]), (1, _P["20"])))
+_FP6_MUL_BY_V = _plan("fp6_mul_by_v", 6, fused._xi(_X2), _X0, _X1)
+# fp6_inv over (a0^2, a2^2, a1^2, a1 a2, a0 a1, a0 a2): c0 = a0^2 - xi a1 a2,
+# c1 = xi a2^2 - a0 a1, c2 = a1^2 - a0 a2; then t = xi (a2 c1 + a1 c2) + a0 c0.
+_S0, _S1, _S2, _Q0, _Q1, _Q2 = (_fp2(i) for i in range(6))
+_FP6_INV_C = _plan("fp6_inv_c", 12, _sum((1, _S0), (-1, fused._xi(_Q0))),
+                   _sum((1, fused._xi(_S1)), (-1, _Q1)), _sum((1, _S2), (-1, _Q2)))
+_FP6_INV_T = _plan("fp6_inv_t", 6, _sum((1, fused._xi(_sum((1, _X0), (1, _X1)))), (1, _X2)))
+# fp2_inv over (a0^2, a1^2, a0, a1): the norm a0^2 + a1^2 and conj(a).
+_FP2_INV = fused.lincomb_plan("fp2_inv", ((1, 1, 0, 0), (0, 0, 1, 0), (0, 0, 0, -1)))
+# fp12_inv over the squares of a0 and a1 (Fp6 each): a0^2 - v a1^2.
+_FP12_INV_T = _plan("fp12_inv_t", 12, _sum((1, _X0), (-1, fused._xi(_fp2(5)))),
+                    _sum((1, _X1), (-1, _fp2(3))), _sum((1, _X2), (-1, _fp2(4))))
+_FP12_CONJ = fused.lincomb_plan(
+    "fp12_conj", [[(1 if j < 6 else -1) if i == j else 0 for j in range(12)] for i in range(12)])
 
 
 def _pair(a, b):
@@ -73,12 +127,13 @@ def fp2_sqr(a):
 
 
 def fp2_conj(a):
-    return torch.stack([a[..., 0, :, :], neg(a[..., 1, :, :])], dim=-3)
+    """a0 - a1 u for every Fp2 of (..., 2, 12, n): one K4 launch."""
+    return fused.fp_lincomb(a, _CONJ)
 
 
 def fp2_mul_by_xi(a):
-    a0, a1 = a[..., 0, :, :], a[..., 1, :, :]
-    return torch.stack([sub(a0, a1), add(a0, a1)], dim=-3)
+    """xi a = (a0 - a1) + (a0 + a1) u: one K4 launch."""
+    return fused.fp_lincomb(a, _XI)
 
 
 def fp2_mul_fp(a, s):
@@ -88,10 +143,11 @@ def fp2_mul_fp(a, s):
 
 
 def fp2_inv(a):
-    a0, a1 = a[..., 0, :, :], a[..., 1, :, :]
+    """conj(a) / (a0^2 + a1^2): the norm and the conjugate in one K4 launch."""
     sq = lb.mul(a, a)
-    ninv = lb.inv(add(sq[..., 0, :, :], sq[..., 1, :, :]))
-    return lb.mul(torch.stack([a0, neg(a1)], dim=-3), ninv.unsqueeze(-3))
+    nc = fused.fp_lincomb((sq, a), _FP2_INV)        # (..., 3, 12, n)
+    ninv = lb.inv(nc[..., 0, :, :])
+    return lb.mul(nc[..., 1:, :, :], ninv.unsqueeze(-3))
 
 
 def fp2_is_zero(a):
@@ -157,17 +213,13 @@ def _fp6_parts(a):
 
 
 def fp6_mul(a, b):
-    """Fp6 schoolbook: the nine Fp2 products in one K2 call."""
+    """Fp6 schoolbook: the nine Fp2 products in one K2 call, their sums
+    (xi folded in) in one K4 launch."""
     a0, a1, a2 = _fp6_parts(a)
     b0, b1, b2 = _fp6_parts(b)
     pr = fp2_mul(torch.stack([a0, a1, a2, a0, a1, a0, a2, a1, a2], dim=-4),
                  torch.stack([b0, b1, b2, b1, b0, b2, b0, b2, b1], dim=-4))
-    p00, p11, p22, p01, p10, p02, p20, p12, p21 = (
-        pr[..., i, :, :, :] for i in range(9))
-    c0 = add(p00, fp2_mul_by_xi(add(p12, p21)))
-    c1 = add(add(p01, p10), fp2_mul_by_xi(p22))
-    c2 = add(add(p02, p11), p20)
-    return torch.stack([c0, c1, c2], dim=-4)
+    return fused.fp_lincomb(_terms(pr, 1), _FP6_MUL).unflatten(-3, (3, 2))
 
 
 def fp6_sqr(a):
@@ -175,8 +227,8 @@ def fp6_sqr(a):
 
 
 def fp6_mul_by_v(a):
-    a0, a1, a2 = _fp6_parts(a)
-    return torch.stack([fp2_mul_by_xi(a2), a0, a1], dim=-4)
+    """(xi a2, a0, a1): one K4 launch."""
+    return fused.fp_lincomb(_terms(a, 1), _FP6_MUL_BY_V).unflatten(-3, (3, 2))
 
 
 def fp6_inv(a):
@@ -184,14 +236,11 @@ def fp6_inv(a):
     st = lambda *p: torch.stack(p, dim=-4)  # noqa: E731
     sq = fp2_sqr(st(a0, a2, a1))
     p1 = fp2_mul(st(a1, a0, a0), st(a2, a1, a2))
-    c0 = sub(sq[..., 0, :, :, :], fp2_mul_by_xi(p1[..., 0, :, :, :]))
-    c1 = sub(fp2_mul_by_xi(sq[..., 1, :, :, :]), p1[..., 1, :, :, :])
-    c2 = sub(sq[..., 2, :, :, :], p1[..., 2, :, :, :])
+    c = fused.fp_lincomb((_terms(sq, 1), _terms(p1, 1)), _FP6_INV_C).unflatten(-3, (3, 2))
+    c0, c1, c2 = _fp6_parts(c)
     tp = fp2_mul(st(a2, a1, a0), st(c1, c2, c0))
-    t = add(fp2_mul_by_xi(add(tp[..., 0, :, :, :], tp[..., 1, :, :, :])),
-            tp[..., 2, :, :, :])
-    tinv = fp2_inv(t)
-    return fp2_mul(st(c0, c1, c2), tinv.unsqueeze(-4))
+    tinv = fp2_inv(fused.fp_lincomb(_terms(tp, 1), _FP6_INV_T))
+    return fp2_mul(c, tinv.unsqueeze(-4))
 
 
 # --- Fp12 -------------------------------------------------------------------
@@ -217,15 +266,16 @@ def fp12_mul_sparse_line(a, l0, l1, l2):
 
 
 def fp12_conj(a):
-    return torch.stack([a[..., 0, :, :, :, :], neg(a[..., 1, :, :, :, :])], dim=-5)
+    """a0 - a1 w: one K4 launch writing the whole value."""
+    return fused.fp_lincomb(_terms(a, 2), _FP12_CONJ).unflatten(-3, (2, 3, 2))
 
 
-def fp12_inv(a):
-    a0, a1 = a[..., 0, :, :, :, :], a[..., 1, :, :, :, :]
-    sq = fp6_sqr(torch.stack([a0, a1], dim=-5))
-    t = sub(sq[..., 0, :, :, :, :], fp6_mul_by_v(sq[..., 1, :, :, :, :]))
+def fp12_inv(a, a_conj=None):
+    """conj(a) / (a0^2 - v a1^2); a_conj, conj(a) where the caller has it."""
+    sq = fp6_sqr(a)                                  # a0^2 and a1^2
+    t = fused.fp_lincomb(_terms(sq, 2), _FP12_INV_T).unflatten(-3, (3, 2))
     tinv = fp6_inv(t)
-    return fp6_mul(torch.stack([a0, neg(a1)], dim=-5), tinv.unsqueeze(-5))
+    return fp6_mul(fp12_conj(a) if a_conj is None else a_conj, tinv.unsqueeze(-5))
 
 
 def fp12_eq(a, b):
@@ -238,8 +288,7 @@ def fp12_is_one(a):
 
 
 def fp12_frob(a):
-    conj = torch.cat([a[..., 0:1, :, :], neg(a[..., 1:2, :, :])], dim=-3)
-    return fp2_mul(conj, consts(a.device).frob_mult)
+    return fp2_mul(fp2_conj(a), consts(a.device).frob_mult)
 
 
 def fp12_frob_n(a, n: int):

@@ -7,8 +7,11 @@ headline's eager verify gave a kernel (the `verify` phase's
 launches_by_shape). A shape's times come from the `kernels` phase: K7 and
 the main-path shapes (K1_SHAPES ... K6_SHAPES) where timed at that exact
 shape, else the kernel's time at the nearest n of NS, its bound scaled to
-the shape's n. Prints one JSON line a kernel, largest loss first, then the
-total. Reads the log only: it runs anywhere.
+the shape's n. K4's fp_lincomb is timed per plan (`by_plan`), and the verify
+records its launches by first operand shape only: a shape takes the mean
+over the plans of their times and bounds at the nearest n. Prints one JSON
+line a kernel, largest loss first, then the total. Reads the log only: it
+runs anywhere.
 """
 
 import ast
@@ -39,6 +42,11 @@ def loss_table(path):
             t = times.setdefault(d["kernel"], {"by_n": {}, "by_shape": {}})
             for key in ("by_n", "by_shape"):
                 t[key].update(d.get(key, {}))
+            for n in d.get("ns", ()) if "by_plan" in d else ():
+                at = [rows[str(n)] for rows in d["by_plan"].values() if str(n) in rows]
+                if at:
+                    t["by_n"][str(n)] = {k: sum(r[k] for r in at) / len(at)
+                                         for k in ("ms", "bound_ms")}
     rows = defaultdict(lambda: {"launches": 0, "loss_ms": 0.0, "ms_at": {}})
     for name, shapes in phases["verify"][0]["headline"]["launches_by_shape"].items():
         for key, count in shapes.items():

@@ -400,7 +400,8 @@ def test_header_counts_and_words():
         body = block[block.index(f"kK5Plan{name}["):]
         got = [int(h, 16) for h in re.findall(r"0x([0-9a-f]{8})u", body[:body.index("};")])]
         assert got == words
-    assert f"#define LH_K5_INV_HI {fused.K5_INV_HI.hex()}" in header
+    # The operands' quotient constant lives in fp.cuh (lh::sum_mod, K4's too).
+    assert f"kInvHi = {fused.K5_INV_HI.hex()};" in (CSRC / "fp.cuh").read_text()
 
 
 def test_schedule_bounds_are_checked():

@@ -1,15 +1,17 @@
 """Kernel K4, the port's Fp additive layer (ops/fused.py fp_add / fp_sub /
-fp_neg / fp_mul_small, csrc/fp_add.cu), on the CPU.
+fp_neg / fp_mul_small, one-row plans of csrc/fp_add.cu's linear
+combinations: tests/test_torch_fp_lincomb.py), on the CPU.
 
 - The plain versions against the JAX package's batch-minor add / sub / neg
   followed by canonicalize, and against Python integers mod p, with
   tolerance zero, on seeded inputs and on edge values.
-- csrc/fp_add.cu's own limb algorithm replayed in Python integers (32-bit
+- csrc/fp.cuh's modular chains (lh::add_mod, sub_mod, neg_mod, which K5's
+  operands of unit coefficients take) replayed in Python integers (32-bit
   carries, the trial subtraction of p and the select, the borrow-masked
-  add of p, the double-and-add chain of mul_small), every bound it relies
-  on asserted, on every pair of edge values.
-- The launch arguments the wrapper hands the kernel (two row levels of
-  element strides per input), replayed as the kernel reads memory.
+  add of p), and mul_small's one-row plan through the kernel's one-pass
+  sum, every bound asserted, on every pair of edge values.
+- The launch arguments the wrapper hands the kernel (each operand a term,
+  two row levels of element strides), replayed as the kernel reads memory.
 - The wrapper's checks, and its routing: lb.add and its callers reach it.
 """
 
@@ -199,16 +201,14 @@ def neg_mod(a):
 
 
 def mul_small_mod(a, k):
-    """mul_small_mod: left to right over k's bits below the top one
-    (30 - clz(k) down to 0), a doubling and, for a set bit, an add of a."""
+    """fp_mul_small's one-row plan ((k,),) through csrc/fp_add.cu: the
+    plan's word, then fp.cuh sum_mod's one pass on it."""
+    from test_torch_fp_lincomb import plan_rows, sum_mod
+
     assert 1 <= k < 1 << 16
-    clz = 32 - k.bit_length()
-    out = list(a)
-    for bit in range(30 - clz, -1, -1):
-        out = add_mod(out, out)
-        if (k >> bit) & 1:
-            out = add_mod(out, a)
-    return out
+    ((word,),) = plan_rows(((k,),), (1,))
+    assert word == (0, 0, k)
+    return _limbs(sum_mod([_value(a)], [k]))
 
 
 def test_replay_add_sub_on_edge_pairs():
@@ -231,50 +231,36 @@ def test_replay_mul_small_on_edges(k):
 
 
 def test_kernel_source_constants():
-    """p's immediates in fp.cuh (lh::p_limb, which fp_add.cu's chains read),
-    the block of elements, and the range of k the launcher accepts."""
+    """p's immediates in fp.cuh (lh::p_limb, which the chains and the
+    one-pass sum read), and the range of k the launcher accepts (a plan's
+    coefficient)."""
     csrc = Path(fused.__file__).parent / "csrc"
     src = (csrc / "fp_add.cu").read_text()
     header = (csrc / "fp.cuh").read_text()
     body = header[header.index("constexpr uint32_t p_limb"):]
     imms = [int(h, 16) for h in re.findall(r"0x([0-9a-f]{8})u", body[:body.index("}")])]
     assert imms == P_LIMBS
-    assert "k < 1 || k >= (1 << 16)" in src
-    assert fused.MUL_SMALL_MAX == 1 << 16
+    assert "kMaxCoeff = (1 << 16) - 1;" in src
+    assert fused.MUL_SMALL_MAX == 1 << 16 == fused.LINCOMB_MAX_COEFF + 1
 
 
 # --- The launch arguments, read as the kernel reads memory -------------------
 
 
 def _kernel_reads(name, xs, k=0):
-    """The kernel's view of each input from the wrapper's arguments: element
-    e = (row, j), row = (r1, r0), limb l of input i at
-    r1 s1 + r0 s0 + l sl + j sn from its data pointer; no geometry means
-    dense inputs (r0 = rows, strides (0, 12 n, n, 1))."""
+    """The kernel's view of each input from the wrapper's arguments (one
+    term an operand, test_torch_fp_lincomb.kernel_reads), in the output's
+    shape; the one-row plan's word is the entry's coefficient."""
+    from test_torch_fp_lincomb import kernel_reads, plan_rows
+
     out, inputs, args = fused._k4_args(name, xs, k)
-    m = len(inputs)
-    ptrs = args[1:1 + m]
-    rows, n = args[1 + m:3 + m]
-    if name == "fp_mul_small":
-        assert args[3 + m] == k
-    geom = args[-1]
-    if geom is None:
-        r0, strides = rows, [(0, 12 * n, n, 1)] * m
-    else:
-        vals = list(geom)
-        assert len(vals) == 1 + 4 * m
-        r0, strides = vals[0], [vals[1 + 4 * i:5 + 4 * i] for i in range(m)]
-    assert rows * n * 12 == out.numel() and out.is_contiguous() and rows % r0 == 0
-    e = torch.arange(rows * n)
-    row, j = e // n, e % n
-    r1, rr0 = row // r0, row % r0
-    views = []
-    for i, x in enumerate(inputs):
-        s1, s0, sl, sn = strides[i]
-        flat = torch.as_strided(x, (x.untyped_storage().nbytes() // 4,), (1,), 0)
-        base = (ptrs[i] - x.untyped_storage().data_ptr()) // 4
-        idx = base + r1[None] * s1 + rr0[None] * s0 + torch.arange(12)[:, None] * sl + j[None] * sn
-        views.append(flat[idx].reshape(12, rows, n).transpose(0, 1).reshape(out.shape))
+    ((_, _, c), *rest), = plan_rows(((k,),) if name == "fp_mul_small" else
+                                    fused._ONE_ROW[name], (1,) * len(inputs))
+    assert c == {"fp_add": 1, "fp_sub": 1, "fp_neg": -1, "fp_mul_small": k}[name]
+    assert [w[2] for w in rest] == ([-1] if name == "fp_sub" else [1] if name == "fp_add"
+                                    else [])
+    out = out.squeeze(-3)
+    views = [v.reshape(out.shape) for v in kernel_reads(out.unsqueeze(-3), inputs, args)]
     return out, views
 
 
